@@ -9,7 +9,7 @@ plain HMC, 4 chains on CPU (reference NumPy sampler)").
 It is deliberately written in plain single-process NumPy — scalar loops,
 no JAX — and samples the *same* unconstrained density as
 starcat.potential (same sigmoid/log transforms, same priors), so posterior
-moments of (x, y, flux) from the TPU heads must match these within
+moments of (x, y, flux) from the JAX heads must match these within
 Monte-Carlo error (SURVEY.md §3.6 validate()).
 """
 from __future__ import annotations

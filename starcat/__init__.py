@@ -1,10 +1,10 @@
-"""starcat — TPU-native probabilistic cataloging inference engine.
+"""starcat — probabilistic cataloging inference engine in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 `jaekor91/HMC-stellar-toy-model` (see SURVEY.md): Poisson-likelihood
 PSF-convolved scene model, sampled with HMC / RHMC / NUTS / SMC / ADVI heads
 that share one potential, vmapped over thousands of chains and sharded over
-TPU device meshes.
+device meshes.
 """
 
 from .scene import SceneSpec, render_scene, make_mock_image, pixel_centers  # noqa: F401
@@ -21,7 +21,7 @@ from .potential import (  # noqa: F401
 )
 from .hmc import HMCConfig, run_hmc  # noqa: F401
 from .nuts import NUTSConfig, run_nuts  # noqa: F401
-from .rhmc import RHMCConfig, run_rhmc, run_rhmc_pallas  # noqa: F401
+from .rhmc import RHMCConfig, run_rhmc  # noqa: F401
 from .smc import SMCConfig, run_smc  # noqa: F401
 from .advi import ADVIConfig, fit_advi  # noqa: F401
 from .chees import ChEESConfig, run_chees  # noqa: F401

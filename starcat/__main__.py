@@ -2,8 +2,13 @@
 
 Commands:
   run       --config cfg2_nuts [key=value ...]   run a preset head
+  report    --config ... [--out-prefix P]         run a preset, save plots
+                                                  (needs matplotlib)
   validate  [--config cfg0_single_star]          oracle vs JAX moment match
   list                                            list presets
+
+The persistent compile cache goes to JAX_COMPILATION_CACHE_DIR when it is
+set, else to .jax_cache/ at the checkout root (runtime.py).
 """
 from __future__ import annotations
 
@@ -53,7 +58,13 @@ def cmd_run(args):
 
 def cmd_report(args):
     """Run a preset and write trace/corner/reconstruction PNGs (L0 layer)."""
+    import importlib.util
+
     import numpy as np
+
+    if importlib.util.find_spec("matplotlib") is None:
+        raise SystemExit("starcat report needs matplotlib, which is not "
+                         "installed; `run` needs nothing beyond JAX")
 
     from .api import sample, summarize_output
     from .configs import CONFIGS, apply_overrides
@@ -82,14 +93,15 @@ def cmd_report(args):
                      default=float))
 
 
-def cmd_validate(args):
-    """Config-0 oracle validation of EVERY head (SURVEY.md §3.6, §4.2
-    oracle row: "NumPy oracle vs each head").  Each head samples the same
-    single-star scene; flux/position posterior moments must match the
-    oracle within MC error (z-score gate)."""
+def validate(config: str = "cfg0_single_star",
+             heads=("hmc", "nuts", "chees", "rhmc", "smc", "advi",
+                    "transdim")) -> dict:
+    """Oracle validation of every head (SURVEY.md §3.6, §4.2 oracle row:
+    "NumPy oracle vs each head").  Each head samples the same single-star
+    scene; flux/position posterior moments must match the oracle within MC
+    error (z-score gate).  Returns {"validated", "config", "heads"}."""
     import dataclasses
 
-    import jax
     import numpy as np
 
     from . import diagnostics
@@ -98,7 +110,7 @@ def cmd_validate(args):
     from .potential import constrain
     from oracle.numpy_sampler import run_oracle
 
-    cfg = CONFIGS[args.config]
+    cfg = CONFIGS[config]
     truth_theta, img = cfg.make_data()
     x, y, f = constrain(truth_theta, cfg.scene)
 
@@ -110,7 +122,6 @@ def cmd_validate(args):
     )
     orc_draws = orc["samples"].reshape(4, -1, cfg.n_stars, 3)
 
-    heads = args.heads.split(",")
     ok = True
     report = {}
     for head in heads:
@@ -160,10 +171,16 @@ def cmd_validate(args):
                         "oracle": round(cmp["b"]["mean"], 4)}
             hok &= cmp["z"] < zmax
         report[head] = {"validated": bool(hok), "moments": hrep}
+        if "kernel" in out.stats:
+            report[head]["kernel"] = out.stats["kernel"]
         ok &= hok
-    print(json.dumps({"validated": bool(ok), "config": cfg.name,
-                      "heads": report}, default=float))
-    sys.exit(0 if ok else 1)
+    return {"validated": bool(ok), "config": cfg.name, "heads": report}
+
+
+def cmd_validate(args):
+    res = validate(args.config, args.heads.split(","))
+    print(json.dumps(res, default=float))
+    sys.exit(0 if res["validated"] else 1)
 
 
 def main(argv=None):
@@ -177,7 +194,7 @@ def main(argv=None):
     p_run.add_argument("--config", required=True)
     p_run.add_argument("--seed", type=int, default=0)
     p_run.add_argument("--checkpoint", default=None,
-                       help="orbax block-checkpoint path (SURVEY.md §5.4)")
+                       help="block-checkpoint file (SURVEY.md §5.4)")
     p_run.add_argument("--metrics", default=None,
                        help="JSONL per-window metrics sink (SURVEY.md §5.5)")
     p_run.add_argument("--resume", action="store_true",
@@ -200,6 +217,9 @@ def main(argv=None):
     p_val.set_defaults(fn=cmd_validate)
 
     args = ap.parse_args(argv)
+    from .runtime import configure_compile_cache
+
+    configure_compile_cache()
     args.fn(args)
 
 

@@ -133,7 +133,7 @@ def fit_advi_fullrank(
         xis = jax.random.normal(key, (config.n_mc, d), mu.dtype)
 
         def one(xi):
-            theta = (mu + l_mat @ xi).reshape(kshape)
+            theta = (mu + jnp.matmul(l_mat, xi, precision="highest")).reshape(kshape)
             u, _ = grad_fn(theta)
             return u
 
@@ -162,4 +162,5 @@ def advi_sample_fullrank(
     kshape = result.mu.shape
     d = result.mu.size
     xi = jax.random.normal(key, (n, d), result.mu.dtype)
-    return (result.mu.reshape(d) + xi @ result.scale_tril.T).reshape((n,) + kshape)
+    scaled = jnp.matmul(xi, result.scale_tril.T, precision="highest")
+    return (result.mu.reshape(d) + scaled).reshape((n,) + kshape)

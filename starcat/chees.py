@@ -3,10 +3,10 @@
 Hoffman, Radul & Sountsov (2021) "An Adaptive-MCMC Scheme for Setting
 Trajectory Lengths in Hamiltonian Monte Carlo" (the ChEES criterion; see
 also PAPERS.md "Incorporating the ChEES Criterion into SMC").  SURVEY.md
-§7.3 flags it as the TPU-friendlier alternative to NUTS: every chain runs
-the SAME number of leapfrog steps per iteration (no per-chain tree
-control flow), so chains stay in lockstep on the VPU/MXU and the batch
-wastes no work on ragged trajectories.
+§7.3 flags it as the accelerator-friendlier alternative to NUTS: every
+chain runs the SAME number of leapfrog steps per iteration (no per-chain
+tree control flow), so chains stay in lockstep and the batch wastes no work
+on ragged trajectories.
 
 Criterion: maximize  ChEES(T) = E[ (|θ' − μ'|² − |θ − μ|²)² ] / 4  over
 trajectory length T, by Adam ascent on log T using the per-iteration
@@ -50,15 +50,14 @@ class ChEESConfig(NamedTuple):
     # monotone-saturating scaling 0.025*sqrt(C/256) clipped to
     # [0.025, 0.05] — it cannot invert with chain count (VERDICT round-4
     # item 1c; round 4's step function was 0.025 below 1024 / 0.05 at and
-    # above, discontinuous at the boundary).  Measured basis (rounds 4-5,
-    # runs/chees_chain_sweep*.json + runs/chees_lr_fix.json): the pooled
-    # ChEES gradient gets SMOOTHER as the chain pool grows, and the Adam
-    # ascent on log T then under-converges within the warmup budget —
-    # T collapsed 37 -> 5.6 at 1024 chains (ESS/s 15.2k -> 3.4k, the
-    # round-3 "collapse"), restored to T~30-58 and 16-22k ESS/s by
-    # lr 0.05 at 1024/4096 chains; conversely lr 0.05 at 256 chains
-    # (noisy small-pool gradient) LOSES 6.7x ESS/s, and lr 0.1 collapses
-    # T again even at 4096.  Set a number to override.
+    # above, discontinuous at the boundary).  Basis (rounds 4-5 chain-count
+    # sweeps): the pooled ChEES gradient gets SMOOTHER as the chain pool
+    # grows, and the Adam ascent on log T then under-converges within the
+    # warmup budget — T collapsed 37 -> 5.6 at 1024 chains (the round-3
+    # "collapse", a several-fold ESS loss), restored to T~30-58 by lr 0.05
+    # at 1024/4096 chains; conversely lr 0.05 at 256 chains (noisy
+    # small-pool gradient) loses ESS, and lr 0.1 collapses T again even at
+    # 4096.  Set a number to override.
     adam_lr: float | None = None
     max_leapfrog: int = 1024        # hard cap on steps per iteration
     divergence_threshold: float = 1000.0
@@ -73,21 +72,18 @@ class ChEESConfig(NamedTuple):
     t_drift_tol: float = 0.25
     max_warmup_extensions: int = 2
     # Post-warmup trajectory-length probe (round 5) — OFF by default: a
-    # measured negative result.  The round-5 chain sweep
-    # (runs/chees_chain_sweep_r5.json) showed the Adam ascent lands at
-    # SEED-DEPENDENT optima at <=1024 chains (same scene/count: T~37 at
-    # ESS/s 15.1k on one seed, T~9.4 at 1.9k on another, both with small
-    # drift).  The probe re-scores the landed T against t_probe_factors*T
-    # side by side (t_probe_iters jittered iterations per candidate from
-    # the SAME chain states — common random numbers) and keeps the
-    # criterion argmax.  Measured on the failing rows
-    # (runs/chees_probe_fix.json): the probe promotes T 9->38 as designed,
-    # but pooled ESS/s got WORSE (2.3k->1.5k at 256 chains; split-R-hat
-    # UNCHANGED at 4x the trajectory length).  Two findings follow: (a)
-    # the bad seeds' deficit is END-OF-WARMUP chain disagreement
-    # (metastable flux configurations), which sampling-time T cannot
-    # repair — it persists at 1000-draw windows too
-    # (runs/chees_longwindow_badseeds.json); (b) the ChEES
+    # measured negative result.  The round-5 chain sweep showed the Adam
+    # ascent lands at SEED-DEPENDENT optima at <=1024 chains (same
+    # scene/count: T~37 on one seed, T~9.4 on another with ~8x less ESS,
+    # both with small drift).  The probe re-scores the landed T against
+    # t_probe_factors*T side by side (t_probe_iters jittered iterations per
+    # candidate from the SAME chain states — common random numbers) and
+    # keeps the criterion argmax.  Measured on the failing rows: the probe
+    # promotes T 9->38 as designed, but pooled ESS per second got WORSE
+    # (split-R-hat UNCHANGED at 4x the trajectory length).  Two findings
+    # follow: (a) the bad seeds' deficit is END-OF-WARMUP chain
+    # disagreement (metastable flux configurations), which sampling-time T
+    # cannot repair — it persists at 1000-draw windows too; (b) the ChEES
     # criterion measured from NON-stationary states grows monotonically
     # with T (dispersed chains always move further along longer
     # trajectories), so argmax-probing carries an inflation bias that the
@@ -96,9 +92,8 @@ class ChEESConfig(NamedTuple):
     t_probe_factors: tuple[float, ...] = (0.5, 1.0, 2.0, 4.0)
     t_probe_iters: int = 0
     # Post-warmup EQUILIBRATION gate (round 5) — the fix the probe study
-    # pointed to.  Mechanism (runs/chees_chain_sweep_r5.json +
-    # runs/chees_longwindow_badseeds.json + the stuck-chain diagnosis in
-    # docs/DESIGN.md): on seeds where the T ascent lands low, chains exit
+    # pointed to.  Mechanism (the round-5 sweeps and the stuck-chain
+    # diagnosis in docs/DESIGN.md): on seeds where the T ascent lands low, chains exit
     # warmup with their MEANS still spread (+-2 within-chain sd across the
     # bulk, pooled split-R-hat 1.05-1.08) and reconcile so slowly at the
     # low T that the deficit persists even at 1000-draw windows — while
@@ -115,7 +110,7 @@ class ChEESConfig(NamedTuple):
     # cross-chain state copying, so R-hat keeps meaning what it says.
     # max_eq_stages=0 disables.
     #
-    # Measured role (runs/chees_eq_gate.json): DETECTION, not cure.  On
+    # Measured role (round 5): DETECTION, not cure.  On
     # the bad-seed rows the statistic separates cleanly (0.9-2.1 vs
     # 0.30-0.47 on good seeds) but the extra blocks do NOT reconcile the
     # chains — the disagreement is metastability of the fixed-K flux
@@ -135,14 +130,14 @@ class ChEESConfig(NamedTuple):
     # run_chees (the api layer builds it from the scene; generic targets
     # have no scene and skip it).  This is what actually hops the
     # metastable star/flux configurations that split chain populations on
-    # bad seeds — trajectory length cannot (runs/chees_probe_fix.json),
-    # extra equilibration at 4x T cannot (runs/chees_eq_gate.json), but a
-    # configuration jump can; validation: runs/chees_relocate.json.
+    # bad seeds — trajectory length cannot (the probe study), extra
+    # equilibration at 4x T cannot (the equilibration study), but a
+    # configuration jump can (round-5 relocation validation).
     # 0 disables.  Cadence 1 (every draw): one relocate attempt costs one
     # likelihood eval + the matched-filter maps (~4 renders' worth of
     # contractions) against a ~300-step trajectory per draw — <2%
     # overhead — and the measured per-attempt acceptance on a split
-    # 10-star population is ~4% (runs/chees_relocate.json), so hops need
+    # 10-star population is ~4% (round 5), so hops need
     # every draw to accumulate.
     relocate_every: int = 1
 
@@ -183,7 +178,7 @@ def _chees_iteration(
 
     leapfrog_impl: optional fused trajectory implementation with signature
     (theta, p, u, grad, eps, n_steps, inv_mass, mask) -> (theta, p, u, grad)
-    — the runtime-trip-count Pallas kernel (make_fused_leapfrog_impl); the
+    — the fused GPU leapfrog kernel (make_fused_leapfrog_impl); the
     default is the XLA lockstep loop.
     """
     n_chains = states.theta.shape[0]
@@ -307,15 +302,28 @@ def make_chees_relocate(spec, image, prior, resid_floor: float = 1e-2,
 
 
 def make_fused_leapfrog_impl(spec, image, prior, kmax: int,
-                             interpret: bool = False):
-    """Trajectory impl for _chees_iteration on the runtime-trip-count fused
-    Pallas kernel (pallas_kernels.make_pallas_leapfrog_dyn): the adapted
-    n_steps is a traced scalar in SMEM, so ChEES keeps one compiled kernel
-    across all trajectory lengths.  n_chains % 128 == 0 (lane tile)."""
-    from .pallas_kernels import make_pallas_leapfrog_dyn
+                             interpret: bool = False, mesh=None):
+    """Trajectory impl for _chees_iteration on the fused GPU leapfrog
+    kernel (pallas_kernels.make_pallas_leapfrog): the adapted n_steps is a
+    runtime operand, so ChEES keeps one compiled kernel across all
+    trajectory lengths.  With ``mesh`` the kernel runs per chain shard
+    under shard_map (pallas_call has no GSPMD partitioning rule)."""
+    from .pallas_kernels import make_pallas_leapfrog
 
-    fused = make_pallas_leapfrog_dyn(spec, image, prior, kmax,
-                                     interpret=interpret)
+    fused = make_pallas_leapfrog(spec, image, prior, kmax,
+                                 interpret=interpret)
+    if mesh is not None:
+        from jax.sharding import PartitionSpec as PSpec
+
+        ax = PSpec(mesh.axis_names[0])
+        fused = jax.shard_map(
+            fused, mesh=mesh,
+            in_specs=(ax, ax, PSpec(), PSpec(), PSpec(), PSpec(), ax),
+            out_specs=(ax, ax, ax, ax),
+            # pallas_call's out_shape carries no varying-mesh-axes info, so
+            # the vma check cannot see through it
+            check_vma=False,
+        )
 
     def impl(theta, p, u, grad, eps, n_steps, inv_mass, mask):
         return fused(theta, p, eps, inv_mass, mask, n_steps, grad)
@@ -334,7 +342,7 @@ def resolve_adam_lr(n_chains: int) -> float:
     Smooth sqrt scaling saturating at both ends: the pooled ChEES gradient's
     noise scales ~1/sqrt(C), so the safe learning rate grows ~sqrt(C) from
     the measured-good 0.025 at 256 chains until the measured-good 0.05
-    ceiling (0.1 re-collapses T even at 4096 chains — runs/chees_lr_fix.json).
+    ceiling (0.1 re-collapses T even at 4096 chains, round 4).
     Monotone nondecreasing by construction: it cannot invert with chain
     count the way round 4's step function did (VERDICT round-4 item 1c).
     """
@@ -525,7 +533,7 @@ def _chees_probe_jit(
     comparison).  Probe chains are discarded; only the winning log T
     leaves this function.
 
-    Off by default: the study behind it (runs/chees_probe_fix.json, see
+    Off by default: the study behind it (round 5, see
     ChEESConfig.t_probe_factors) found the criterion measured from
     non-stationary states is monotone in T, so the argmax inflates T
     without improving pooled ESS — the machinery is kept for
@@ -743,7 +751,7 @@ def chees_sample_blocked(
     warmup_ndiv: int = 0,
     relocate_fn=None,
 ) -> SampleResult:
-    """ChEES sampling in fixed-size jit blocks with optional orbax
+    """ChEES sampling in fixed-size jit blocks with optional
     checkpoints — the exact pattern of driver.sample_blocked (bitwise
     identical to one chees_sample call; each block logs a per-window record
     and a crash loses at most one block)."""
@@ -812,7 +820,7 @@ def run_chees(
     """init -> warmup (eps/mass/T adaptation) -> jittered sampling.
 
     leapfrog_impl: pass make_fused_leapfrog_impl(...) to run trajectories
-    on the runtime-trip-count fused Pallas kernel (TPU fast path).
+    on the fused GPU leapfrog kernel.
 
     relocate_fn: optional batch configuration-hop sweep
     (make_chees_relocate) composed into the equilibration blocks and the
@@ -822,7 +830,7 @@ def run_chees(
 
     block_size / checkpoint_path / resume / logger give ChEES the same
     durability surface as the other MCMC heads (driver.run_mcmc): blocked
-    sampling with orbax checkpoints after warmup and after every block,
+    sampling with checkpoints after warmup and after every block,
     per-window metrics records, and crash-resume from the last completed
     block that is bitwise-identical to an uninterrupted run.
     """

@@ -36,14 +36,11 @@ class RunConfig:
     n_chains: int = 64
     n_samples: int = 1000    # recorded draws
     n_warmup: int = 500
-    # Kernel selection for the hmc/rhmc/chees heads (SURVEY.md ⑮ dispatch;
-    # VERDICT round-3 item 4):
-    #   "auto"   — fused Pallas kernel when the shape supports it AND the
-    #              measured cost model says it wins end-to-end (the fused
-    #              Riemannian kernels carry a large fixed Mosaic-compile
-    #              cost; at small chain counts the XLA path is faster
-    #              wall-clock even though the kernel is ~6x per step)
-    #   "pallas" — force the fused kernel whenever the shape supports it
+    # Kernel selection for the hmc/chees heads and the trans-d HMC move
+    # (api._select_kernel; stats["kernel"] reports what ran):
+    #   "auto"   — the fused GPU leapfrog kernel on a GPU when the scene
+    #              fits it, XLA everywhere else
+    #   "pallas" — require the fused kernel (raises where it cannot run)
     #   "xla"    — force the XLA reference path
     kernel: str = "auto"
     thin: int = 1            # transitions per recorded draw (MCMC heads)
@@ -108,12 +105,12 @@ cfg1_rhmc = _register(RunConfig(
     # (RHMCConfig.divergence_penalty) settles eps ~0.010 where divergences
     # and solver failures are < 2% (vs 6.7-8.7% at round 3's eps 0.027) —
     # and at that eps the 16-step trajectory gives ~1.8x the ESS of the
-    # old 8-step one (runs/solver_probe.json: ESS/200 draws 72.8 vs 41.3).
+    # old 8-step one (round-4 solver probe: ESS/200 draws 72.8 vs 41.3).
     rhmc=RHMCConfig(step_size=0.3, n_leapfrog=16, fixed_point_iters=6),
 ))
 
 # config 2: "10-star scene, NUTS with dual-averaging step-size adaptation,
-# 1024 vmapped chains on 1 chip"
+# 1024 vmapped chains on 1 device"
 cfg2_nuts = _register(RunConfig(
     name="cfg2_nuts",
     scene=SceneSpec(32, 32, 1.5, 10.0),
@@ -148,27 +145,25 @@ cfg4_crowded = _register(RunConfig(
     n_stars=50, kmax=64,
     head="smc",
     smc=SMCConfig(
-        # Fused diagonal-Fisher mutation (pallas_rhmc_diag MXU layout): the
-        # diag metric already beat the full-metric step 41.1 s -> 0.19 s
-        # (runs/diag_bench.json) with a BETTER-mixed posterior (star-count
-        # mode 46 vs 40, logZ +39 nats — runs/cfg4_diag*.json); fusing the
-        # whole trajectory drops the full temperature step a further
-        # 0.91 s -> 0.36 s at P=4096 (runs/cfg4_step_probe.json, round 3).
-        n_particles=4096, mutation="rhmc_diag_pallas", n_mutation_steps=2,
+        # Diagonal-Fisher mutation (XLA, chunked by mutation_chunk): the
+        # closed-form diag metric is far cheaper per step than the full
+        # metric at this shape and gave a better-mixed posterior (higher
+        # star-count mode and logZ) in the round-3 comparison.
+        n_particles=4096, mutation="rhmc_diag", n_mutation_steps=2,
         n_leapfrog=6,
         fixed_point_iters=4, n_transdim_sweeps=12, step_size0=0.2,
         max_steps=250,  # crowded-field likelihood needs many more temper steps
         # Plateau-stopped posterior rounds (VERDICT round-3 item 1): the
-        # star-count budget curve saturates ON the 50-star truth
-        # (runs/cfg4_seed101_ext2k*, round 3), so a bare run now keeps
+        # star-count budget curve saturates ON the 50-star truth (round
+        # 3), so a bare run now keeps
         # taking cheap posterior rounds until the windowed mean count stops
         # moving instead of shipping a fixed too-small budget (round 3's
         # n_final_rounds=12 returned a known-unconverged mode 41).
         # final_n_leapfrog deliberately NOT raised, n_islands deliberately
         # 1: population-flux diversity measured FLAT across 16x trajectory
         # lengths and 4x trans-d sweeps (round 4).  Round-5 measured
-        # islands surface (runs/islands_surface.json, 7 cfg4 runs, 2
-        # seeds): between-island R-hat at a matched 300-round budget is a
+        # islands surface (7 cfg4 runs, 2 seeds): between-island R-hat at
+        # a matched 300-round budget is a
         # function of TOTAL population only — ~1.000 at P=8192 for EVERY
         # geometry tested (4x2048 / 16x512 / 32x256, +45 nats logZ,
         # identical moments) vs 1.41-1.56 at P=4096 (16x256 / 8x512).
@@ -176,7 +171,7 @@ cfg4_crowded = _register(RunConfig(
         # superseded: the convergence lever is total particles (>=8192
         # at this budget) and island geometry is free for the device
         # layout (islands never communicate at resampling).  At the
-        # preset's single-chip P=4096, the honest gate remains cross-seed
+        # preset's single-device P=4096, the honest gate remains cross-seed
         # replication; set n_particles>=8192 n_islands=8 (or any
         # geometry) where memory allows an in-run R-hat gate.
         plateau_window=50, plateau_tol=0.25, max_final_rounds=1500,
@@ -199,10 +194,9 @@ cfg5_transdim_mcmc = _register(RunConfig(
     head="transdim",
     n_chains=256, n_samples=1000, n_warmup=400,
     tdm=TransDimMCMCConfig(
-        # Diagonal-Fisher mutation (fused kernel on TPU): full-spec wall
-        # 132 s vs 406 s for the full metric with a statistically identical
-        # posterior — mode 10 both, flux ESS 4375 vs 4114
-        # (runs/cfg5_full_diag.json vs runs/cfg5_full.json, round 3).
+        # Diagonal-Fisher mutation: a statistically identical posterior to
+        # the full metric (star-count mode 10 both, similar flux ESS, round
+        # 3) at a fraction of the per-step cost.
         step_size=0.15, mutation="rhmc_diag", n_leapfrog=6,
         fixed_point_iters=4,
         n_transdim_sweeps=2, target_accept=0.8,
@@ -217,10 +211,9 @@ cfg5_transdim_mcmc = _register(RunConfig(
 ))
 
 
-# config 6: the recommended TPU head for the flagship scene — ChEES-HMC
-# (lockstep adaptive trajectories, runtime-trip-count fused kernel).
-# Measured on the cfg2 protocol (v5e, 256 chains): 15,118 ESS/s vs NUTS's
-# 181 — the adaptive-trajectory fast path of VERDICT round-1 item 4.
+# config 6: the recommended head for the flagship scene — ChEES-HMC
+# (lockstep adaptive trajectories; on a GPU the fused leapfrog kernel runs
+# the adapted trip count).
 cfg6_chees = _register(RunConfig(
     name="cfg6_chees",
     scene=SceneSpec(32, 32, 1.5, 10.0),
@@ -229,7 +222,7 @@ cfg6_chees = _register(RunConfig(
     head="chees",
     n_chains=1024, n_samples=1000, n_warmup=500,
     chees=ChEESConfig(step_size=0.05),
-    notes="ChEES on the fused dyn kernel: 84x NUTS ESS/s at the cfg2 shape",
+    notes="ChEES-HMC on the flagship scene (fused leapfrog kernel on a GPU)",
 ))
 
 
@@ -246,7 +239,7 @@ cfg7_advi = _register(RunConfig(
     n_stars=10, kmax=10,
     head="advi",
     advi=ADVIConfig(n_steps=3000),
-    notes="variational baseline on the cfg2 scene; record runs/cfg7_advi.json",
+    notes="variational baseline on the cfg2 scene",
 ))
 
 

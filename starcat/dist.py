@@ -1,11 +1,12 @@
 """Distributed runtime / comms backend (SURVEY.md ⑭, §5.8).
 
 The reference has no parallelism at all (single-process NumPy — SURVEY.md
-§0/§2).  The TPU-native scaling layer is GSPMD: one logical program, a named
-device mesh, sharding annotations, and XLA-inserted collectives.  Intra-
-slice traffic rides ICI; cross-host setup and multi-slice collectives ride
-DCN — all reached exclusively through jax.lax collectives inside jit
-(psum/all_gather), exactly the primitives BASELINE.json:5 names.
+§0/§2).  The scaling layer is GSPMD: one logical program, a named device
+mesh, sharding annotations, and XLA-inserted collectives — reached
+exclusively through jax.lax collectives inside jit (psum/all_gather),
+which XLA hands to NCCL on GPUs.  The mesh is 1-D: every card of a host
+reaches every other at the same rate, so no topology-shaped mesh is
+needed.
 
 Usage:
     init_distributed()                       # per-host, multi-host runs only
@@ -79,9 +80,9 @@ def constrain_chains(tree, mesh: Mesh, axis_name: str = "chains"):
 def make_pixel_sharded_loglik(spec, image, mesh: Mesh, axis_name: str = "pixels"):
     """Pixel-axis sharding escape hatch (SURVEY.md §5.7).
 
-    Configs 0-4 fit per chip and shard only chains/particles; when a scene
-    ever exceeds per-chip memory/FLOP comfort, the idiomatic TPU answer is
-    to shard the PIXEL axis: each device renders its row block of the image
+    Configs 0-4 fit per device and shard only chains/particles; when a
+    scene ever exceeds one device's memory, the answer is to shard the
+    PIXEL axis: each device renders its row block of the image
     (the separable likelihood needs no halo exchange — the PSF is evaluated
     analytically per pixel) and a single psum combines the per-shard
     partial log-likelihood sums.

@@ -103,40 +103,27 @@ def make_pallas_hmc_kernel(
     interpret: bool = False,
     mesh=None,
 ):
-    """Batched HMC kernel on the fused Pallas leapfrog (SURVEY.md ⑮).
+    """Batched HMC kernel on the fused GPU leapfrog (pallas_kernels.py).
 
-    The whole L-step trajectory for every chain runs inside one Pallas
-    kernel (VMEM-resident scene math; ~3x the XLA path's grad-eval
-    throughput at equal f32 accuracy on a v5e chip); momentum refresh and
-    MH accept stay in XLA.  n_chains must be a multiple of 128.
+    The whole L-step trajectory for every chain runs inside one kernel
+    launch; momentum refresh and MH accept stay in XLA.  Any chain count
+    works (the kernel pads to its chain block).
 
     With ``mesh`` (1-D chain mesh, dist.make_mesh) the pallas_call is
-    wrapped in shard_map over the chain axis so multi-chip runs keep the
+    wrapped in shard_map over the chain axis so multi-device runs keep the
     fused kernel per shard — pallas_call itself has no GSPMD partitioning
     rule.  The surrounding momentum refresh / MH accept math is plain XLA
     and partitions under GSPMD as usual.
 
     mask may be shared (K,) or per-chain (C, K) — the trans-d MCMC head
     (transdim_mcmc.py) rides this kernel with per-chain alive masks.
-
-    Kernel selection: small scenes take the chains-on-lanes VPU kernel
-    (pallas_kernels.py); crowded fields whose lane fields overflow VMEM
-    take the chains-on-sublanes MXU kernel (pallas_mxu.py, measured at
-    parity with the XLA path at the cfg4 shape — both exp-bound, see
-    docs/DESIGN.md roofline) — both share the call contract.
     """
-    from .pallas_kernels import fused_supported, make_pallas_leapfrog
-    from .pallas_mxu import make_pallas_leapfrog_mxu
+    from .pallas_kernels import make_pallas_leapfrog
 
     kmax = int(mask.shape[-1])
-    if fused_supported(spec, kmax, 128):  # small scene -> VPU kernel
-        maker = make_pallas_leapfrog
-    else:                                 # crowded field -> MXU kernel
-        maker = make_pallas_leapfrog_mxu
-    fused = maker(
-        spec, image, prior, kmax, config.n_leapfrog, interpret=interpret
-    )
-    fused_call = lambda th, pp, e, im, m, g: fused(th, pp, e, im, m, grad=g)
+    fused = make_pallas_leapfrog(spec, image, prior, kmax, interpret=interpret)
+    n_steps = config.n_leapfrog
+    fused_call = lambda th, pp, e, im, m, g: fused(th, pp, e, im, m, n_steps, g)
     if mesh is not None:
         from jax.sharding import PartitionSpec as PSpec
 
@@ -148,7 +135,7 @@ def make_pallas_hmc_kernel(
                       PSpec(ax)),
             out_specs=(PSpec(ax), PSpec(ax), PSpec(ax), PSpec(ax)),
             # pallas_call's out_shape carries no varying-mesh-axes info, so
-            # the vma check cannot see through it (as in smc.py)
+            # the vma check cannot see through it
             check_vma=False,
         )
     mask3 = mask[..., None]
@@ -219,7 +206,7 @@ def run_hmc_pallas(
     spec,
     image,
     prior,
-    theta0: jax.Array,  # (n_chains, K, 3); n_chains % 128 == 0
+    theta0: jax.Array,  # (n_chains, K, 3)
     mask: jax.Array,
     n_samples: int,
     n_warmup: int,
@@ -233,10 +220,10 @@ def run_hmc_pallas(
     thin: int = 1,
     mesh=None,
 ):
-    """run_hmc on the fused Pallas trajectory kernel (performance path).
+    """run_hmc on the fused GPU trajectory kernel (performance path).
 
     Pass ``mesh`` (with theta0 sharded over its chain axis, see
-    dist.shard_chains) for multi-chip runs — the fused kernel then runs
+    dist.shard_chains) for multi-device runs — the fused kernel then runs
     per-shard under shard_map.
     """
     from .potential import make_potential_and_grad

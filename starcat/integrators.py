@@ -41,7 +41,7 @@ def leapfrog(
 
     Reuses the cached gradient at the initial point, so the cost is exactly
     ``n_steps`` fresh gradient evaluations (the hot-loop unit the benchmark
-    counts, BASELINE.json:2 "leapfrog grad-evals/sec/chip").
+    counts, BASELINE.json:2 "leapfrog grad-evals/sec").
     """
 
     def step(carry, _):
@@ -108,7 +108,7 @@ def riemannian_leapfrog(
 
     The final sweep of each solve also reports its relative delta (see
     RiemannianLeapfrogResult.solver_resid); sweep counts stay STATIC so the
-    XLA head remains step-for-step comparable with the fused Pallas kernels.
+    head stays lockstep across vmapped chains.
     """
 
     def fp(f, x0):
@@ -142,9 +142,8 @@ def riemannian_leapfrog(
 # NOTE: an explicit symplectic integrator (Tao 2016 phase-space doubling,
 # as applied to RMHMC by Cobb et al. 2019) was implemented here in round 1
 # and RETIRED in round 2 after a decisive omega sweep on config 1 — see
-# docs/DESIGN.md "Explicit Riemannian integrator: measured and retired"
-# and runs/omega_sweep.json.  At every binding strength (omega 1..100) the
+# docs/DESIGN.md "Explicit Riemannian integrator: measured and retired".
+# At every binding strength (omega 1..100) the
 # dual-averaged step size shrank ~omega^-1/2 and total-flux ESS/s was
-# ~2.6x WORSE than the implicit fixed-sweep scheme, which also rides the
-# fused Pallas kernel (pallas_rhmc.py).  The implicit generalized leapfrog
+# ~2.6x WORSE than the implicit fixed-sweep scheme.  The implicit generalized leapfrog
 # above is the only supported Riemannian integrator.

@@ -12,8 +12,8 @@ information is E[grad grad^T log L] = sum_p (d lam/d a)(d lam/d b)/lam_p;
 e.g. the flux-flux block reduces to the classic sum_p PSF_p^2 / lam_p —
 SURVEY.md ④.)
 
-TPU shape: J is assembled from the separable PSF profiles and contracted as
-one (3K, P) @ (P, 3K) matmul — MXU-shaped, batched over chains by vmap.
+Shape: J is assembled from the separable PSF profiles and contracted as
+one (3K, P) @ (P, 3K) matmul, batched over chains by vmap.
 
 Dead catalog slots get exact identity rows/columns (their J rows are zero
 because d lam / d theta_dead = 0, and their prior term is masked), so the
@@ -111,9 +111,9 @@ def make_diag_metric_fn(spec: SceneSpec, prior: PriorSpec, jitter: float = 1e-3)
         #   sum_hw (row_k[h] * col_k[w])^2 / lam[h,w]
         # with row/col the 1-D PSF profiles (or their derivatives), so
         #   g[k] = coef_k^2 * (row_k^2 @ (1/lam) @ col_k^2)
-        # — two (K,H)@(H,W) MXU matmuls shared across the three parameter
+        # — two (K,H)@(H,W) matmuls shared across the three parameter
         # types, never materializing the (K,3,H,W) Jacobian (the J-form
-        # costs ~5x more HBM traffic at the 128x128 crowded-field shape).
+        # moves several times more bytes at the 128x128 crowded field).
         x, y, f = constrain(theta, spec)
         cx = pixel_centers(spec.width, theta.dtype)
         cy = pixel_centers(spec.height, theta.dtype)

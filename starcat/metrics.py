@@ -4,9 +4,7 @@ helpers (SURVEY.md §5.1).
 Reference status: matplotlib plots + prints (SURVEY.md §5.5 `[R]`).  Here:
 per-window scalar metrics appended as JSONL by process 0, a
 `jax.profiler.trace` context for TensorBoard/xprof captures, and an XLA
-cost-analysis helper that turns a compiled function into a
-speed-of-light roofline estimate (BASELINE.json:5 "speed-of-light per
-chip").
+cost-analysis helper (flops and bytes of a compiled function).
 """
 from __future__ import annotations
 
@@ -70,20 +68,16 @@ def profile_trace(logdir: str | None):
 def cost_analysis(jitted_fn, *example_args) -> dict:
     """XLA cost analysis of a jitted callable on example args.
 
-    Returns {'flops', 'bytes_accessed', 'seconds_flops_bound',
-    'seconds_bw_bound'} using v5e peaks (197e12 bf16 / ~49e12 f32 FLOPs,
-    819 GB/s HBM) — the roofline denominators for the speed-of-light
-    comparison (SURVEY.md §5.1).
+    Returns {'flops', 'bytes_accessed'} as the compiler counts them for the
+    current backend.  No device peak is assumed here: a roofline share
+    needs a peak table keyed by device_kind, kept with the benchmark.
     """
     compiled = jax.jit(jitted_fn).lower(*example_args).compile()
     ca = compiled.cost_analysis()
     if isinstance(ca, list):  # older jax returns a list per computation
         ca = ca[0]
-    flops = float(ca.get("flops", 0.0))
-    bytes_accessed = float(ca.get("bytes accessed", ca.get("bytes_accessed", 0.0)))
     return {
-        "flops": flops,
-        "bytes_accessed": bytes_accessed,
-        "seconds_flops_bound_f32": flops / 49e12,
-        "seconds_bw_bound": bytes_accessed / 819e9,
+        "flops": float(ca.get("flops", 0.0)),
+        "bytes_accessed": float(
+            ca.get("bytes accessed", ca.get("bytes_accessed", 0.0))),
     }

@@ -1,370 +1,156 @@
-"""Pallas fused leapfrog kernel (SURVEY.md ⑮; BASELINE.json:5 "fused Pallas
-kernels over thousands of chains").
+"""Fused leapfrog trajectory kernel for the GPU (Pallas, Triton route).
 
-Why a kernel: the XLA path lowers the per-chain scene/gradient math to
-batched (32,10)@(10,32) matmuls — tiny contractions that pad the MXU and
-round-trip every intermediate (lam, residual, profiles; ~17 KB/chain/step)
-through HBM.  Measured on a v5e chip that path sits at ~8.1M grad-evals/s
-(~0.6 TFLOP/s effective) and is flat in chain count, i.e. bandwidth/
-padding-bound, not dispatch-bound.
+Why a kernel: under XLA each leapfrog step of the vmapped potential is a
+handful of small kernels inside a while loop, and each writes per-chain
+(H, W) fields (the rendered scene lam, the Poisson residual) to device
+memory and reads them back.  A whole trajectory only needs the image (4 KB
+at 32x32) and ~30 parameters per chain, so it can stay on the chip for all
+L steps: device memory sees theta/p/grad in and theta/p/U/grad out, once
+per trajectory.
 
-Kernel design (chains-on-lanes):
-  - grid over chain tiles of 128: every array in VMEM is (..., 128) with the
-    chain as the lane dimension, so all scene math is perfectly-shaped VPU
-    work — no MXU padding waste, no HBM traffic inside a trajectory;
-  - the FULL L-step leapfrog trajectory runs inside one kernel invocation:
-    HBM sees only theta/p in and theta/p/U/grad out per trajectory;
-  - the potential/gradient math mirrors potential.make_potential_and_grad
-    exactly (same unconstrained parameterization, same priors) so the MH
-    accept using kernel U values is exact — tests cross-check against the
-    XLA path to float tolerance;
-  - parameter layout inside the kernel: packed (3K, C) rows [ux; uy; s]
-    grouped by coordinate, chains last.
-
-VMEM per tile (K=10, 32x32 scene): lam/R (H,W,128) ~0.5 MB each, per-star
-outer products computed on the fly (two passes: lam build, then gradient
-contractions) — ~2 MB total, comfortably inside 16 MB.
+Design (one program = one chain, the grid runs over chains, so any chain
+count works):
+  - the per-star profiles are built as (W, K) and (H, K) tiles, K padded to
+    16 and the image to powers of two (>= 16), padding masked;
+  - render and gradient are three in-kernel products per evaluation:
+    lam = bg + gy (H,K) @ gxw^T (K,W), then rgx = R (H,W) @ gxw (W,K) and
+    the same against the position-weighted profiles, with R = D/lam - 1;
+    the flux/x/y gradients are column sums of (H, K) tiles;
+  - the products run at float32 ("ieee" input precision, no TF32) on the
+    CUDA cores; they are far too small to gain from the tensor cores;
+  - the trip count is an operand: one compiled kernel serves the static-L
+    hmc head and ChEES's adapted length alike, and the entry gradient is
+    reused, so a trajectory of n steps costs exactly n evaluations;
+  - the math mirrors potential.make_potential_and_grad (same unconstrained
+    parameterization and priors), so the MH accept on kernel U values is
+    exact; tests cross-check against the XLA path to float tolerance.
 """
 from __future__ import annotations
 
 import math
-from functools import partial
-from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from .potential import PriorSpec
 from .scene import SceneSpec
 
-TILE = 128  # minimum chain tile (one lane group)
+# the smallest dimension Triton's dot takes
+MIN_DIM = 16
+# image tiles beyond 64x64 (or more than 32 catalog slots) would spill a
+# program's registers: the crowded field stays on the XLA path
+MAX_PIXELS = 64 * 64
+MAX_K = 32
+_PRECISION = lax.Precision.HIGHEST  # float32 products, no TF32
 
 
-def fused_supported(spec: SceneSpec, kmax: int, n_chains: int) -> bool:
-    """Should the fused VPU trajectory kernel be used for this workload?
-
-    Two regimes (both measured on a v5e chip):
-    - Small scenes (config 0-3: <= ~48x48 pixels): the XLA path lowers the
-      per-chain scene math to tiny padded batched matmuls and HBM
-      round-trips — the chains-on-lanes VPU kernel is ~3x faster (17.8M vs
-      5.8M grad-evals/s at 10 stars / 32x32 / 1024 chains).
-    - Crowded fields (config 4: 50 stars, 128x128): the per-chain
-      contractions are genuine (128,K)@(K,128) MXU shapes and XLA reaches
-      ~956k grad-evals/s at 1024 chains — ABOVE the fused-VPU roofline
-      (~1.1 T FMA/s / (3*K*H*W) ~ 440k).  Large scenes route to XLA
-      deliberately: this is the MXU/VPU crossover, not a kernel gap.
-
-    The VMEM feasibility bound (three (H, W, 128) f32 fields + profile
-    sets inside the scoped-vmem cap) coincides with the same ~48x48 limit,
-    so one pixel-count test decides both.
-    """
-    return (
-        spec.height * spec.width <= 48 * 48
-        and n_chains % TILE == 0
-        and kmax <= 16
-    )
+def _pow2(n: int) -> int:
+    return max(1 << max(int(n) - 1, 0).bit_length(), MIN_DIM)
 
 
-def pick_tile(n_chains: int, spec: SceneSpec, kmax: int) -> int:
-    """Chain tile selection.  Measured on the config-2 workload (v5e):
-    tile 128 = 13.9M grad-evals/s, tile 256 = 12.1M (slower — the larger
-    working set spills VPU scheduling), tile 512+ fails Mosaic compile
-    (VMEM overflow).  One lane group (128) is the sweet spot; the `tile`
-    argument of make_pallas_leapfrog remains for experimentation.
-    """
-    del n_chains, spec, kmax
-    return TILE
+def fused_supported(spec: SceneSpec, kmax: int) -> bool:
+    """Does the scene fit the kernel's per-program tiles?"""
+    return (_pow2(spec.height) * _pow2(spec.width) <= MAX_PIXELS
+            and _pow2(kmax) <= MAX_K)
 
 
-def _grad_eval(theta, mask_col, image, spec: SceneSpec, prior: PriorSpec, kmax: int,
-               with_u: bool = True):
-    """Potential + gradient for one chain tile, all VPU-shaped.
+def num_warps(spec: SceneSpec) -> int:
+    """One warp per 32x32 image tile (measured fastest at the cfg6 shape)."""
+    return max(1, _pow2(spec.height) * _pow2(spec.width) // 1024)
 
-    theta:    (3K, T) packed [ux; uy; s], chains on lanes
-    mask_col: (K, 1) alive mask
-    image:    (H, W) counts
-    returns (u (T,), grad (3K, T))
-    """
-    k, h, w = kmax, spec.height, spec.width
-    t = theta.shape[-1]
+
+def _grad_eval(ux, uy, s, mask, img, spec: SceneSpec, prior: PriorSpec,
+               hp: int, wp: int, with_u: bool):
+    """U and dU/dtheta for one chain.
+
+    ux, uy, s, mask: (1, Kp) rows.  img: (Hp, Wp) zero-padded image.
+    Returns (u scalar, (gux, guy, gs) each (1, Kp))."""
+    h, w = spec.height, spec.width
     sig = spec.psf_sigma
     norm = 1.0 / (math.sqrt(2.0 * math.pi) * sig)
 
-    ux, uy, s = theta[:k], theta[k : 2 * k], theta[2 * k :]
-    sx = jax.nn.sigmoid(ux)                     # (K, T)
-    sy = jax.nn.sigmoid(uy)
-    x = spec.width * sx
-    y = spec.height * sy
-    f = jnp.exp(s)
-    wk = f * mask_col                           # (K, T) masked flux
-
-    cx = jax.lax.broadcasted_iota(jnp.int32, (w, t), 0).astype(jnp.float32) + 0.5
-    cy = jax.lax.broadcasted_iota(jnp.int32, (h, t), 0).astype(jnp.float32) + 0.5
-
-    # per-star 1-D profiles, (K, W, T) / (K, H, T)
-    zx = (cx[None, :, :] - x[:, None, :]) / sig
-    zy = (cy[None, :, :] - y[:, None, :]) / sig
-    gx = jnp.exp(-0.5 * zx * zx) * norm
+    sx = 1.0 / (1.0 + jnp.exp(-ux))
+    sy = 1.0 / (1.0 + jnp.exp(-uy))
+    wk = jnp.exp(s) * mask                                   # masked flux
+    cx = lax.broadcasted_iota(jnp.int32, (wp, 1), 0)
+    cy = lax.broadcasted_iota(jnp.int32, (hp, 1), 0)
+    zx = (cx.astype(jnp.float32) + 0.5 - w * sx) / sig       # (Wp, Kp)
+    zy = (cy.astype(jnp.float32) + 0.5 - h * sy) / sig       # (Hp, Kp)
+    gxw = jnp.exp(-0.5 * zx * zx) * norm * (cx < w).astype(jnp.float32) * wk
     gy = jnp.exp(-0.5 * zy * zy) * norm
-    gyw = gy * wk[:, None, :]                   # flux-weighted row profiles
 
-    # lam: (H, W, T) built by an unrolled star loop of rank-1 updates
-    lam = jnp.full((h, w, t), spec.background, jnp.float32)
-    for kk in range(k):
-        lam = lam + gyw[kk][:, None, :] * gx[kk][None, :, :]
+    lam = spec.background + pl.dot(gy, gxw, trans_b=True,
+                                   precision=_PRECISION)     # (Hp, Wp)
+    valid = ((cy < h) & (lax.broadcasted_iota(jnp.int32, (1, wp), 1) < w)
+             ).astype(jnp.float32)
+    r = (img / lam - 1.0) * valid
+    rg = pl.dot(r, gxw, precision=_PRECISION)                # (Hp, Kp)
+    rgz = pl.dot(r, gxw * zx, precision=_PRECISION)
+    d_s = jnp.sum(gy * rg, axis=0, keepdims=True)            # dloglik/ds
+    d_x = jnp.sum(gy * rgz, axis=0, keepdims=True) / sig     # dloglik/dx
+    d_y = jnp.sum(gy * zy * rg, axis=0, keepdims=True) / sig
 
-    d = jnp.broadcast_to(image[:, :, None], (h, w, t))
-    resid = d / lam - 1.0
-    if with_u:
-        loglik = jnp.sum(d * jnp.log(lam) - lam, axis=(0, 1))  # (T,)
-    else:
-        loglik = jnp.zeros((t,), jnp.float32)
-
-    # gradient contractions, star by star.  The 2-D contractions are
-    # separable like the render: Rgy_k[w] = sum_h R*gy_k collapses the pixel
-    # sum to 1-D, after which flux/x/y gradients are W-length dots — ~2x
-    # fewer HW-sized passes than contracting each gradient directly.
-    # Contract over H (the LEADING axis) first: Mosaic lowers a leading-axis
-    # reduction of (H, W, T) as H plain (W, T) vector accumulations, with no
-    # sublane-rotation tree — measured 14% faster than the W-first (sublane
-    # reduction) form on the v5e at the config-2 shapes.
-    gyz = gy * zy                                          # (K, H, T)
-    dlx = []
-    dly = []
-    dlf = []
-    for kk in range(k):
-        rgy = jnp.sum(resid * gy[kk][:, None, :], axis=0)      # (W, T)
-        rdgy = jnp.sum(resid * gyz[kk][:, None, :], axis=0)    # (W, T)
-        gxw = gx[kk] * wk[kk][None, :]                         # (W, T)
-        dlf.append(jnp.sum(gxw * rgy, axis=0))                 # (T,)
-        dlx.append(jnp.sum(gxw * zx[kk] * rgy, axis=0) / sig)
-        dly.append(jnp.sum(gxw * rdgy, axis=0) / sig)
-    d_flux = jnp.stack(dlf)                                # (K, T)
-    d_x = jnp.stack(dlx)
-    d_y = jnp.stack(dly)
-
-    # chain rule to unconstrained coords + priors (mirrors potential.py)
-    gl_ux = d_x * spec.width * sx * (1.0 - sx)
-    gl_uy = d_y * spec.height * sy * (1.0 - sy)
-    gl_s = d_flux                                          # d lam/d s = wk*gy*gx = gk
-    # (gl_s uses gk which already includes wk = f*mask: d loglik/d s exactly)
-
-    # priors
-    lp_pos = -(jax.nn.softplus(ux) + jax.nn.softplus(-ux)
-               + jax.nn.softplus(uy) + jax.nn.softplus(-uy))     # (K, T)
+    # chain rule to unconstrained coordinates + priors (potential.py)
     zf = (s - prior.logf_mean) / prior.logf_sigma
-    if with_u:
-        lp_flux = (-0.5 * zf * zf - math.log(prior.logf_sigma)
-                   - 0.5 * math.log(2 * math.pi))
-        lp = jnp.sum((lp_pos + lp_flux) * mask_col, axis=0)      # (T,)
-    else:
-        lp = jnp.zeros((t,), jnp.float32)
-
-    gp_ux = (1.0 - 2.0 * sx) * mask_col
-    gp_uy = (1.0 - 2.0 * sy) * mask_col
-    gp_s = -zf / prior.logf_sigma * mask_col
-
-    grad = jnp.concatenate(
-        [
-            -(gl_ux * mask_col + gp_ux),
-            -(gl_uy * mask_col + gp_uy),
-            -(gl_s * mask_col + gp_s),
-        ],
-        axis=0,
-    )                                                            # (3K, T) = dU/dtheta
-    u = -(loglik + lp)
-    return u, grad
+    gux = -(d_x * w * sx * (1.0 - sx) + (1.0 - 2.0 * sx)) * mask
+    guy = -(d_y * h * sy * (1.0 - sy) + (1.0 - 2.0 * sy)) * mask
+    gs = -(d_s - zf / prior.logf_sigma) * mask
+    if not with_u:
+        return None, (gux, guy, gs)
+    ll = jnp.sum((img * jnp.log(lam) - lam) * valid)
+    # softplus(u) + softplus(-u) = |u| + 2 log1p(exp(-|u|))
+    lp_pos = -(jnp.abs(ux) + 2.0 * jnp.log1p(jnp.exp(-jnp.abs(ux)))
+               + jnp.abs(uy) + 2.0 * jnp.log1p(jnp.exp(-jnp.abs(uy))))
+    lp_flux = (-0.5 * zf * zf - math.log(prior.logf_sigma)
+               - 0.5 * math.log(2.0 * math.pi))
+    return -(ll + jnp.sum((lp_pos + lp_flux) * mask)), (gux, guy, gs)
 
 
-def _leapfrog_kernel(
-    image_ref, eps_ref, invm_ref, mask_ref, theta_ref, p_ref, *rest,
-    spec: SceneSpec, prior: PriorSpec, kmax: int, n_steps: int, grad_in: bool,
-):
-    if grad_in:
-        grad_in_ref, theta_out, p_out, u_out, grad_out = rest
-    else:
-        grad_in_ref = None
-        theta_out, p_out, u_out, grad_out = rest
-    image = image_ref[:]
-    eps = eps_ref[:]            # (1, TILE) per-chain step sizes
-    inv_mass = invm_ref[:]      # (3K, 1)
-    mask_col = mask_ref[:]      # (K, 1) shared or (K, T) per-chain
-    theta = theta_ref[:]        # (3K, TILE)
-    p = p_ref[:]
+def _leapfrog_kernel(n_ref, img_ref, eps_ref, invm_ref, mask_ref, *refs,
+                     spec, prior, hp, wp):
+    ins, outs = refs[:9], refs[9:]
+    n = n_ref[()]
+    eps = eps_ref[...]                                       # (1, 1)
+    img = img_ref[...]
+    invm = tuple(invm_ref[pl.ds(j, 1), :] for j in range(3))  # (1, Kp) each
+    mask = mask_ref[...]
+    th, p, g = (tuple(r[...] for r in ins[j:j + 3]) for j in (0, 3, 6))
 
-    if n_steps == 0:
-        u, grad = _grad_eval(theta, mask_col, image, spec, prior, kmax, with_u=True)
-    else:
-        # Intermediate steps skip the log-likelihood (transcendental-heavy);
-        # only the final gradient evaluation computes U for the MH accept.
-        # When the caller already holds dU/dtheta at the entry point (HMC
-        # chain state carries it across trajectories), reuse it and save one
-        # of the L+1 gradient evaluations.
-        if grad_in_ref is not None:
-            grad = grad_in_ref[:]
-        else:
-            _, grad = _grad_eval(theta, mask_col, image, spec, prior, kmax,
-                                 with_u=False)
+    def evaluate(th, with_u):
+        return _grad_eval(*th, mask, img, spec, prior, hp, wp, with_u)
 
-        def step(_, carry):
-            theta, p, grad = carry
-            p_half = p - 0.5 * eps * grad
-            theta = theta + eps * inv_mass * p_half
-            _, grad = _grad_eval(theta, mask_col, image, spec, prior, kmax,
-                                 with_u=False)
-            p = p_half - 0.5 * eps * grad
-            return theta, p, grad
+    def drift(th, p, g):
+        ph = tuple(pj - 0.5 * eps * gj for pj, gj in zip(p, g))
+        th = tuple(tj + eps * mj * phj for tj, mj, phj in zip(th, invm, ph))
+        return th, ph
 
-        theta, p, grad = jax.lax.fori_loop(
-            0, n_steps - 1, step, (theta, p, grad)
-        )
-        p_half = p - 0.5 * eps * grad
-        theta = theta + eps * inv_mass * p_half
-        u, grad = _grad_eval(theta, mask_col, image, spec, prior, kmax, with_u=True)
-        p = p_half - 0.5 * eps * grad
-
-    theta_out[:] = theta
-    p_out[:] = p
-    u_out[:] = u[None, :]
-    grad_out[:] = grad
-
-
-def _leapfrog_kernel_dyn(
-    nsteps_ref, image_ref, eps_ref, invm_ref, mask_ref, theta_ref, p_ref,
-    grad_in_ref, theta_out, p_out, u_out, grad_out,
-    *, spec: SceneSpec, prior: PriorSpec, kmax: int,
-):
-    """Runtime-trip-count fused leapfrog: n_steps lives in SMEM, so one
-    compiled kernel serves every trajectory length — the lockstep
-    adaptive-length samplers (ChEES, chees.py) pick n_steps per iteration
-    as a traced scalar and still ride the fused path (VERDICT.md round-1
-    item 4).  Requires n_steps >= 1 and the entry gradient (the chain state
-    carries it), so the trajectory costs exactly n_steps gradient evals."""
-    n = nsteps_ref[0]
-    image = image_ref[:]
-    eps = eps_ref[:]            # (1, TILE)
-    inv_mass = invm_ref[:]      # (3K, 1)
-    mask_col = mask_ref[:]      # (K, 1) shared or (K, T) per-chain
-    theta = theta_ref[:]
-    p = p_ref[:]
-    grad = grad_in_ref[:]
+    def kick(ph, g):
+        return tuple(phj - 0.5 * eps * gj for phj, gj in zip(ph, g))
 
     def step(_, carry):
-        theta, p, grad = carry
-        p_half = p - 0.5 * eps * grad
-        theta = theta + eps * inv_mass * p_half
-        _, grad = _grad_eval(theta, mask_col, image, spec, prior, kmax,
-                             with_u=False)
-        p = p_half - 0.5 * eps * grad
-        return theta, p, grad
+        th, p, g = carry
+        th, ph = drift(th, p, g)
+        _, g = evaluate(th, with_u=False)
+        return th, kick(ph, g), g
 
-    theta, p, grad = jax.lax.fori_loop(0, n - 1, step, (theta, p, grad))
-    p_half = p - 0.5 * eps * grad
-    theta = theta + eps * inv_mass * p_half
-    u, grad = _grad_eval(theta, mask_col, image, spec, prior, kmax, with_u=True)
-    p = p_half - 0.5 * eps * grad
+    # n - 1 steps without the log-likelihood; the last one also returns U
+    th, p, g = lax.fori_loop(0, n - 1, step, (th, p, g))
+    th, ph = drift(th, p, g)
+    u, g = evaluate(th, with_u=True)
+    p = kick(ph, g)
 
-    theta_out[:] = theta
-    p_out[:] = p
-    u_out[:] = u[None, :]
-    grad_out[:] = grad
+    for ref, val in zip(outs[0:6] + outs[7:10], th + p + g):
+        ref[...] = val
+    outs[6][...] = jnp.broadcast_to(u, (1, 1))
 
 
-def make_pallas_leapfrog_dyn(
-    spec: SceneSpec,
-    image: jax.Array,
-    prior: PriorSpec,
-    kmax: int,
-    interpret: bool = False,
-    tile: int | None = None,
-):
-    """Build fused_dyn(theta (C,K,3), p (C,K,3), eps, inv_mass (K,3),
-    mask (K,) or (C,K), n_steps traced scalar >= 1, grad (C,K,3)) ->
-    (theta', p', u' (C,), grad' (C,K,3)).
-
-    Same math as make_pallas_leapfrog but the trip count is a runtime SMEM
-    scalar: one compile covers all trajectory lengths (ChEES adapts T every
-    iteration; a static-n kernel would recompile per length)."""
-    d3 = 3 * kmax
-    image_f = image.astype(jnp.float32)
-
-    def fused(theta, p, eps, inv_mass, mask, n_steps, grad):
-        kernel = partial(_leapfrog_kernel_dyn, spec=spec, prior=prior, kmax=kmax)
-        c = theta.shape[0]
-        t = pick_tile(c, spec, kmax) if tile is None else tile
-        if c % t:
-            t = math.gcd(c, t)
-        grid = (c // t,)
-        theta_t = _pack(theta, kmax)
-        p_t = _pack(p, kmax)
-        invm_t = _pack(inv_mass[None], kmax).reshape(d3, 1)
-        eps_arr = jnp.broadcast_to(
-            jnp.asarray(eps, jnp.float32).reshape(-1), (c,)
-        ).reshape(1, c)
-        n_arr = jnp.asarray(n_steps, jnp.int32).reshape(1)
-
-        chain_block = lambda i: (0, i)
-        if mask.ndim == 2:
-            mask_arr = mask.T.astype(jnp.float32)
-            mask_spec = pl.BlockSpec((kmax, t), chain_block,
-                                     memory_space=pltpu.VMEM)
-        else:
-            mask_arr = mask.reshape(kmax, 1).astype(jnp.float32)
-            mask_spec = pl.BlockSpec((kmax, 1), lambda i: (0, 0),
-                                     memory_space=pltpu.VMEM)
-        out = pl.pallas_call(
-            kernel,
-            grid=grid,
-            in_specs=[
-                pl.BlockSpec(memory_space=pltpu.SMEM),
-                pl.BlockSpec((spec.height, spec.width), lambda i: (0, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, t), chain_block, memory_space=pltpu.VMEM),
-                pl.BlockSpec((d3, 1), lambda i: (0, 0), memory_space=pltpu.VMEM),
-                mask_spec,
-                pl.BlockSpec((d3, t), chain_block, memory_space=pltpu.VMEM),
-                pl.BlockSpec((d3, t), chain_block, memory_space=pltpu.VMEM),
-                pl.BlockSpec((d3, t), chain_block, memory_space=pltpu.VMEM),
-            ],
-            out_specs=[
-                pl.BlockSpec((d3, t), chain_block, memory_space=pltpu.VMEM),
-                pl.BlockSpec((d3, t), chain_block, memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, t), chain_block, memory_space=pltpu.VMEM),
-                pl.BlockSpec((d3, t), chain_block, memory_space=pltpu.VMEM),
-            ],
-            out_shape=[
-                jax.ShapeDtypeStruct((d3, c), jnp.float32),
-                jax.ShapeDtypeStruct((d3, c), jnp.float32),
-                jax.ShapeDtypeStruct((1, c), jnp.float32),
-                jax.ShapeDtypeStruct((d3, c), jnp.float32),
-            ],
-            interpret=interpret,
-        )(n_arr, image_f, eps_arr, invm_t, mask_arr, theta_t, p_t,
-          _pack(grad, kmax))
-
-        theta_new, p_new, u_new, grad_new = out
-        return (
-            _unpack(theta_new, kmax),
-            _unpack(p_new, kmax),
-            u_new[0],
-            _unpack(grad_new, kmax),
-        )
-
-    return fused
-
-
-def _pack(theta: jax.Array, kmax: int) -> jax.Array:
-    """(C, K, 3) -> (3K, C) rows [ux; uy; s]."""
-    th = jnp.moveaxis(theta, 0, -1)  # (K, 3, C)
-    return jnp.concatenate([th[:, 0], th[:, 1], th[:, 2]], axis=0)
-
-
-def _unpack(packed: jax.Array, kmax: int) -> jax.Array:
-    """(3K, C) -> (C, K, 3)."""
-    ux, uy, s = packed[:kmax], packed[kmax : 2 * kmax], packed[2 * kmax :]
-    return jnp.stack([ux, uy, s], axis=-1).transpose(1, 0, 2)
+def _split(a: jax.Array, kp: int):
+    """(C, K, 3) -> three zero-padded (C, Kp) planes."""
+    a = jnp.pad(a.astype(jnp.float32), ((0, 0), (0, kp - a.shape[1]), (0, 0)))
+    return a[..., 0], a[..., 1], a[..., 2]
 
 
 def make_pallas_leapfrog(
@@ -372,97 +158,54 @@ def make_pallas_leapfrog(
     image: jax.Array,
     prior: PriorSpec,
     kmax: int,
-    n_steps: int,
     interpret: bool = False,
-    tile: int | None = None,
 ):
-    """Build fused_leapfrog(theta (C,K,3), p (C,K,3), eps, inv_mass (K,3),
-    mask (K,) or (C,K), grad=None) -> (theta', p', u' (C,), grad' (C,K,3)).
+    """Build fused(theta (C,K,3), p (C,K,3), eps, inv_mass (K,3),
+    mask (K,) or (C,K), n_steps, grad (C,K,3)) -> (theta', p', u' (C,),
+    grad' (C,K,3)).
 
-    eps may be a scalar or a per-chain (C,) vector (step-size jitter);
-    mask may be shared (K,) or per-chain (C,K) — the trans-dimensional MCMC
-    head (transdim_mcmc.py) carries a different alive mask on every chain,
-    and inside the kernel a (K, T) mask block broadcasts through the same
-    VPU math as the (K, 1) shared column.
-
-    C must be a multiple of 128.  Pass ``grad`` = dU/dtheta at the entry
-    ``theta`` (HMC chain state carries it between trajectories) to make the
-    trajectory cost exactly n_steps gradient evaluations per chain;
-    otherwise the initial gradient is recomputed in-kernel (n_steps + 1).
+    eps is a scalar or a per-chain (C,) vector (step-size jitter); mask is
+    shared (K,) or per-chain (C,K) (the trans-dimensional head).  n_steps is
+    a traced or Python integer >= 1; ``grad`` is dU/dtheta at the entry
+    theta, so the trajectory costs exactly n_steps gradient evaluations.
+    interpret=True runs the Pallas interpreter (tests on the CPU).
     """
-    d3 = 3 * kmax
-    image_f = image.astype(jnp.float32)
+    kp, hp, wp = _pow2(kmax), _pow2(spec.height), _pow2(spec.width)
+    img = jnp.pad(jnp.asarray(image, jnp.float32),
+                  ((0, hp - spec.height), (0, wp - spec.width)))
 
-    def fused(theta, p, eps, inv_mass, mask, grad=None):
-        grad_in = grad is not None and n_steps > 0
-        kernel = partial(
-            _leapfrog_kernel, spec=spec, prior=prior, kmax=kmax,
-            n_steps=n_steps, grad_in=grad_in,
-        )
+    def body(*refs):
+        _leapfrog_kernel(*refs, spec=spec, prior=prior, hp=hp, wp=wp)
+
+    def fused(theta, p, eps, inv_mass, mask, n_steps, grad):
         c = theta.shape[0]
-        t = pick_tile(c, spec, kmax) if tile is None else tile
-        # Auto-shrink to a divisor of C so small per-device shards (e.g.
-        # shard_map on a fake 8-device test mesh) still compile; production
-        # chain counts are multiples of 128 and keep the full lane tile.
-        if c % t:
-            t = math.gcd(c, t)
-        grid = (c // t,)
-        theta_t = _pack(theta, kmax)
-        p_t = _pack(p, kmax)
-        invm_t = _pack(inv_mass[None], kmax).reshape(d3, 1)
-        eps_arr = jnp.broadcast_to(
-            jnp.asarray(eps, jnp.float32).reshape(-1), (c,)
-        ).reshape(1, c)
-
-        chain_block = lambda i: (0, i)
-        if mask.ndim == 2:  # per-chain (C, K) -> (K, C), blocked over chains
-            mask_arr = mask.T.astype(jnp.float32)
-            mask_spec = pl.BlockSpec((kmax, t), chain_block,
-                                     memory_space=pltpu.VMEM)
-        else:               # shared (K,) column, replicated to every tile
-            mask_arr = mask.reshape(kmax, 1).astype(jnp.float32)
-            mask_spec = pl.BlockSpec((kmax, 1), lambda i: (0, 0),
-                                     memory_space=pltpu.VMEM)
-        in_specs = [
-            pl.BlockSpec((spec.height, spec.width), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, t), chain_block, memory_space=pltpu.VMEM),
-            pl.BlockSpec((d3, 1), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            mask_spec,
-            pl.BlockSpec((d3, t), chain_block, memory_space=pltpu.VMEM),
-            pl.BlockSpec((d3, t), chain_block, memory_space=pltpu.VMEM),
-        ]
-        operands = [image_f, eps_arr, invm_t, mask_arr, theta_t, p_t]
-        if grad_in:
-            in_specs.append(
-                pl.BlockSpec((d3, t), chain_block, memory_space=pltpu.VMEM)
-            )
-            operands.append(_pack(grad, kmax))
+        eps_c = jnp.broadcast_to(
+            jnp.asarray(eps, jnp.float32).reshape(-1), (c,)).reshape(c, 1)
+        mask_c = jnp.pad(
+            jnp.broadcast_to(jnp.asarray(mask, jnp.float32), (c, kmax)),
+            ((0, 0), (0, kp - kmax)))
+        invm = jnp.pad(jnp.asarray(inv_mass, jnp.float32).T,
+                       ((0, 1), (0, kp - kmax)))             # (4, Kp)
+        chain = pl.BlockSpec((1, kp), lambda i: (i, 0))
+        scalar = pl.BlockSpec((1, 1), lambda i: (i, 0))
+        plane = jax.ShapeDtypeStruct((c, kp), jnp.float32)
         out = pl.pallas_call(
-            kernel,
-            grid=grid,
-            in_specs=in_specs,
-            out_specs=[
-                pl.BlockSpec((d3, t), chain_block, memory_space=pltpu.VMEM),
-                pl.BlockSpec((d3, t), chain_block, memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, t), chain_block, memory_space=pltpu.VMEM),
-                pl.BlockSpec((d3, t), chain_block, memory_space=pltpu.VMEM),
-            ],
-            out_shape=[
-                jax.ShapeDtypeStruct((d3, c), jnp.float32),
-                jax.ShapeDtypeStruct((d3, c), jnp.float32),
-                jax.ShapeDtypeStruct((1, c), jnp.float32),
-                jax.ShapeDtypeStruct((d3, c), jnp.float32),
-            ],
+            body,
+            grid=(c,),
+            in_specs=[pl.BlockSpec((), lambda i: ()),
+                      pl.BlockSpec((hp, wp), lambda i: (0, 0)), scalar,
+                      pl.BlockSpec((4, kp), lambda i: (0, 0))]
+            + [chain] * 10,
+            out_specs=[chain] * 6 + [scalar] + [chain] * 3,
+            out_shape=[plane] * 6 + [jax.ShapeDtypeStruct((c, 1), jnp.float32)]
+            + [plane] * 3,
+            compiler_params=plgpu.CompilerParams(num_warps=num_warps(spec),
+                                                 num_stages=1),
             interpret=interpret,
-        )(*operands)
-
-        theta_new, p_new, u_new, grad_new = out
-        return (
-            _unpack(theta_new, kmax),
-            _unpack(p_new, kmax),
-            u_new[0],
-            _unpack(grad_new, kmax),
-        )
+            name="starcat_leapfrog",
+        )(jnp.asarray(n_steps, jnp.int32), img, eps_c, invm, mask_c,
+          *_split(theta, kp), *_split(p, kp), *_split(grad, kp))
+        unpad = lambda planes: jnp.stack(planes, axis=-1)[:, :kmax]
+        return unpad(out[0:3]), unpad(out[3:6]), out[6][:, 0], unpad(out[7:10])
 
     return fused

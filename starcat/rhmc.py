@@ -42,12 +42,12 @@ class RHMCConfig(NamedTuple):
     # "full": dense Fisher metric (make_metric_fn) — config-1 default.
     # "diag": diagonal Fisher (make_diag_metric_fn) — no Cholesky, O(3K*P)
     #         metric evals; 4x cheaper per step at the crowded-field shape
-    #         (runs/diag_bench.json) with the same invariant distribution.
+    #         (round-3 measurement) with the same invariant distribution.
     metric: str = "full"
     # The generalized (implicit, fixed-Picard-sweep) leapfrog is the only
     # integrator: an explicit Tao/Cobb doubled-phase-space scheme was
     # measured ~2.6x worse in ESS/s at every binding strength on config 1
-    # and retired (docs/DESIGN.md; runs/omega_sweep.json).
+    # and retired (docs/DESIGN.md).
     #
     # Solver-failure handling (VERDICT round-3 item 5): fixed-point
     # NON-convergence is detected directly from the final Picard sweep's
@@ -59,7 +59,7 @@ class RHMCConfig(NamedTuple):
     # solver-failure fraction) from the pooled acceptance statistic, so eps
     # settles where failures are rare (< ~(1-target)/penalty) instead of
     # being invisible to adaptation.  A per-transition retry was considered
-    # and rejected: under vmap/Pallas lockstep, a retried chain costs every
+    # and rejected: under vmap lockstep, a retried chain costs every
     # chain a second trajectory (docs/DESIGN.md).
     solver_tol: float = 0.05
     divergence_penalty: float = 5.0
@@ -90,11 +90,12 @@ def make_rhmc_functions(potential_fn: Callable, metric_fn: Callable):
         chol = jnp.linalg.cholesky(g)
         logdet = 2.0 * jnp.sum(jnp.log(jnp.diagonal(chol)))
         ginv_p = jax.scipy.linalg.cho_solve((chol, True), p)
-        return potential_fn(theta, mask) + 0.5 * logdet + 0.5 * jnp.dot(p, ginv_p)
+        return potential_fn(theta, mask) + 0.5 * logdet + 0.5 * jnp.dot(p, ginv_p, precision="highest")
 
     # remat: recompute the metric/Jacobian in the backward pass instead of
     # storing the (3K, H*W)-sized residuals of every Picard sweep — without
-    # this, 4096-particle RHMC mutation (SMC config 3) OOM-crashes the chip.
+    # this, 4096-particle RHMC mutation (SMC config 3) runs out of device
+    # memory.
     dham_dtheta = jax.grad(jax.checkpoint(ham), argnums=0)
 
     def dham_dp(theta_flat, p, mask):
@@ -165,7 +166,7 @@ def rhmc_step(
         p0 = jnp.sqrt(g) * xi * mask_p
     else:
         chol = jnp.linalg.cholesky(g)
-        p0 = (chol @ xi) * mask_p
+        p0 = jnp.matmul(chol, xi, precision="highest") * mask_p
 
     dhdt = lambda th, p: dH_dtheta(th, p, mask)
     dhdp = lambda th, p: dH_dp(th, p, mask)
@@ -222,151 +223,6 @@ def make_rhmc_kernel(
         )
 
     return kernel
-
-
-def make_pallas_rhmc_kernel(
-    spec,
-    image,
-    prior,
-    mask: jax.Array,
-    config: RHMCConfig = RHMCConfig(),
-    beta: float = 1.0,
-    jitter: float = 1e-3,
-    interpret: bool = False,
-    diag_metric: bool = False,
-    mesh=None,
-    n_chains: int = 0,
-):
-    """Batched RHMC kernel on the fused Pallas Riemannian leapfrog
-    (SURVEY.md ⑮ "Riemannian variant"; pallas_rhmc.py / pallas_rhmc_diag.py).
-
-    The whole implicit generalized-leapfrog trajectory — metric build,
-    Cholesky (full metric only), both Picard fixed points, Hamiltonian
-    bookkeeping — runs inside one VMEM-resident kernel; only the momentum
-    draw (as N(0,I) noise), step-size jitter and the MH coin stay in XLA.
-    Measured ~6x the XLA autodiff path on a v5e chip at the config-1/2
-    shapes (full metric), 6.5x for the diagonal metric.  n_chains must be
-    a multiple of the tile (128 lanes / 8 sublanes for the crowded-field
-    MXU layout).  mask may be (K,) or per-chain (C, K).
-
-    diag_metric=True selects the fused DIAGONAL-Fisher trajectory
-    (pallas_rhmc_diag), auto-choosing chains-on-lanes for small scenes and
-    the chains-on-sublanes MXU layout for crowded fields (cfg4).
-    """
-    from .pallas_kernels import TILE  # noqa: F401  (tile contract)
-
-    kmax = int(mask.shape[-1])
-    if diag_metric:
-        from .pallas_rhmc_diag import (
-            diag_fused_supported,
-            make_pallas_rhmc_diag_leapfrog,
-            make_pallas_rhmc_diag_mxu,
-        )
-
-        # n_chains=0 means "assume a full 128 lane tile"; callers pass the
-        # real chain count so the builder choice here matches the gate the
-        # dispatcher (api.py) used to pick the kernel name (ADVICE round 3)
-        builder = (
-            make_pallas_rhmc_diag_leapfrog
-            if diag_fused_supported(spec, kmax, n_chains)
-            else make_pallas_rhmc_diag_mxu
-        )
-        fused = builder(
-            spec, image, prior, kmax, config.n_leapfrog,
-            config.fixed_point_iters, jitter=jitter, interpret=interpret,
-        )
-    else:
-        from .pallas_rhmc import make_pallas_rhmc_leapfrog
-
-        fused = make_pallas_rhmc_leapfrog(
-            spec, image, prior, kmax, config.n_leapfrog,
-            config.fixed_point_iters, jitter=jitter, interpret=interpret,
-        )
-
-    if mesh is not None:
-        # pallas_call has no GSPMD partitioning rule — run the fused
-        # trajectory per shard under shard_map (as make_pallas_hmc_kernel)
-        from jax.sharding import PartitionSpec as PSpec
-
-        ax = mesh.axis_names[0]
-        mask_sp = PSpec(ax) if jnp.ndim(mask) == 2 else PSpec()
-        fused = jax.shard_map(
-            fused, mesh=mesh,
-            in_specs=(PSpec(ax), PSpec(ax), PSpec(ax), mask_sp, PSpec()),
-            out_specs=(PSpec(ax),) * 6,
-            # pallas_call's out_shape carries no varying-mesh-axes info, so
-            # the vma check cannot see through it (as in smc.py)
-            check_vma=False,
-        )
-
-    def kernel(states: ChainState, eps, inv_mass):
-        del inv_mass  # the Fisher metric IS the mass matrix
-        keys = jax.vmap(lambda k: jax.random.split(k, 4))(states.key)
-        key, k_mom, k_acc, k_jit = keys[:, 0], keys[:, 1], keys[:, 2], keys[:, 3]
-
-        eps_c = eps * (0.8 + 0.4 * jax.vmap(jax.random.uniform)(k_jit))  # (C,)
-        xi = jax.vmap(lambda k, t: jax.random.normal(k, t.shape, t.dtype))(
-            k_mom, states.theta
-        )
-        theta_new, _p_new, h0, h1, u_new, resid = fused(
-            states.theta, xi, eps_c, mask, beta
-        )
-        energy_error = jnp.where(jnp.isfinite(h1 - h0), h1 - h0, jnp.inf)
-        accept_prob = jnp.exp(jnp.minimum(0.0, -energy_error))
-        diverged = energy_error > config.divergence_threshold
-        # solver non-convergence: force rejection (see rhmc_step)
-        solver_fail = ~(resid < config.solver_tol)
-        accept_prob = jnp.where(solver_fail, 0.0, accept_prob)
-
-        accept = jax.vmap(jax.random.uniform)(k_acc) < accept_prob
-        acc3 = accept[:, None, None]
-        theta = jnp.where(acc3, theta_new, states.theta)
-        u = jnp.where(accept, u_new, states.u)
-
-        return ChainState(theta, u, states.grad, key), RHMCInfo(
-            accept_prob, accept, diverged, energy_error, solver_fail
-        )
-
-    kernel.is_batched = True
-    return kernel
-
-
-def run_rhmc_pallas(
-    key: jax.Array,
-    spec,
-    image,
-    prior,
-    theta0: jax.Array,  # (n_chains, K, 3); n_chains % 128 == 0
-    mask: jax.Array,
-    n_samples: int,
-    n_warmup: int,
-    config: RHMCConfig = RHMCConfig(),
-    block_size: int | None = None,
-    interpret: bool = False,
-    checkpoint_path: str | None = None,
-    resume: bool = False,
-    logger=None,
-    thin: int = 1,
-    mesh=None,
-):
-    """run_rhmc on the fused Pallas Riemannian kernel (performance path).
-    config.metric selects full (pallas_rhmc) vs diag (pallas_rhmc_diag)."""
-    from .potential import make_potential_and_grad
-
-    pg = make_potential_and_grad(spec, image, prior)
-    grad_fn = lambda th: pg(th, mask)
-    kernel = make_pallas_rhmc_kernel(spec, image, prior, mask, config,
-                                     interpret=interpret,
-                                     diag_metric=config.metric == "diag",
-                                     mesh=mesh,
-                                     n_chains=int(theta0.shape[0]))
-    return run_mcmc(
-        key, kernel, grad_fn, theta0, n_samples, n_warmup,
-        step_size=config.step_size, target_accept=config.target_accept,
-        adapt_mass=False, block_size=block_size,
-        checkpoint_path=checkpoint_path, resume=resume, logger=logger,
-        thin=thin, divergence_penalty=config.divergence_penalty,
-    )
 
 
 def run_rhmc(

@@ -8,8 +8,8 @@ with a symmetric Gaussian PSF of fixed width ``psf_sigma`` (the reference's
 fixed-PSF toy model; reference is unavailable — see SURVEY.md §0 — so the
 spec is BASELINE.json:5,7: "PSF-convolved scene model", "fixed PSF").
 
-TPU-first design
-----------------
+Design
+------
 The Gaussian PSF is *separable*: PSF(dx, dy) = g(dx) g(dy).  Rendering is
 therefore a matrix product rather than a per-star scatter:
 
@@ -17,8 +17,7 @@ therefore a matrix product rather than a per-star scatter:
     Gx : (K, W)   per-star row    profiles   g(w + 0.5 - x_k)
     lam = background + (Gy * w[:, None]).T @ Gx        # (H,K) @ (K,W) matmul
 
-which XLA tiles straight onto the MXU, and which batches over chains as a
-batched matmul.  Gradients of the Poisson log-likelihood reduce to two more
+which batches over chains as a batched matmul.  Gradients of the Poisson log-likelihood reduce to two more
 matmuls of the same shape (see potential.py) — the whole hot path is
 matmul-shaped by construction.
 
@@ -96,7 +95,7 @@ def render_scene(
     """
     gy, gx = render_profiles(x, y, spec)
     w = flux * mask  # (K,)
-    # (H,K) @ (K,W) — MXU-friendly; XLA batches this under vmap over chains.
+    # (H,K) @ (K,W); XLA batches this under vmap over chains.
     img = jnp.einsum("kh,kw->hw", gy * w[:, None], gx, precision="highest")
     return spec.background + img
 

@@ -1,6 +1,6 @@
 """Trans-dimensional catalog moves (SURVEY.md ⑪; BASELINE.json:10):
 birth/death and flux-conserving split/merge on a fixed-capacity masked
-catalog — the TPU-native answer to RJMCMC under XLA's static shapes
+catalog — the static-shape answer to RJMCMC under XLA's static shapes
 (SURVEY.md §7.3: K_max slots + alive mask; dead slots contribute exactly 0).
 
 Target measure over the slot representation (K_max slots, n alive):
@@ -247,13 +247,14 @@ def _matched_filter_maps(theta, mask, spec: SceneSpec, image,
     ch = pixel_centers(spec.height, resid.dtype)
     gx = gaussian_profile_1d(cw, cw, spec.psf_sigma)  # (W, W)
     gy = gaussian_profile_1d(ch, ch, spec.psf_sigma)  # (H, H)
-    num = gy @ resid @ gx.T                           # (H, W)
+    mm = lambda a, b: jnp.matmul(a, b, precision="highest")
+    num = mm(mm(gy, resid), gx.T)                     # (H, W)
     mid = gaussian_profile_1d(ch[ch.shape[0] // 2][None], ch,
                               spec.psf_sigma)[0]
     norm1d = jnp.sum(mid * mid)
-    den = gy @ rpos @ gx.T
-    xhat = (gy @ rpos @ (gx * cw[None, :]).T) / den
-    yhat = ((gy * ch[None, :]) @ rpos @ gx.T) / den
+    den = mm(mm(gy, rpos), gx.T)
+    xhat = mm(mm(gy, rpos), (gx * cw[None, :]).T) / den
+    yhat = mm(mm(gy * ch[None, :], rpos), gx.T) / den
     # Gaussian-PSF debias: for a residual that is a star at s seen through
     # the matched window at pixel center c, the raw centroid lands at the
     # MIDPOINT (c+s)/2 (product of two equal-width Gaussians) and the raw

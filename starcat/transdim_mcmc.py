@@ -18,11 +18,10 @@ mask lives in the chain state and varies per chain — which is why this head
 carries its own warmup/sampling loops instead of driver.run_mcmc (the
 shared driver assumes one static mask closed over by the kernel).
 
-TPU mapping: everything vmaps over chains with static (K_max,) shapes
+Device mapping: everything vmaps over chains with static (K_max,) shapes
 (SURVEY.md §7.3 "trans-dimensionality under XLA's static shapes"); the
-within-model RHMC move can ride the fused Pallas Riemannian kernel, which
-accepts per-chain (C, K) masks (pallas_rhmc.py), and the HMC move rides the
-fused Pallas trajectory kernel (pallas_kernels.py, per-chain masks).
+within-model HMC move can ride the fused GPU leapfrog kernel
+(pallas_kernels.py), which accepts per-chain (C, K) masks.
 
 The log-likelihood cache needed by the trans-d acceptance ratios is
 refreshed for free after the within-model move: U = -(loglik + logprior)
@@ -50,16 +49,16 @@ from .potential import (
     make_tempered_potential_and_grad,
     sample_prior,
 )
-from .rhmc import RHMCConfig, make_rhmc_functions, rhmc_step
+from .rhmc import make_rhmc_functions, rhmc_step
 from .scene import SceneSpec
 from .transdim import TransDimConfig, transdim_sweep
 
 
 class TransDimMCMCConfig(NamedTuple):
     step_size: float = 0.1
-    # "hmc" | "rhmc" | "rhmc_diag" | "rhmc_pallas" | "rhmc_diag_pallas" |
-    # "hmc_pallas" within-model move (rhmc_diag: diagonal-Fisher Riemannian
-    # — metric.make_diag_metric_fn; *_pallas: fused trajectory kernels)
+    # "hmc" | "rhmc" | "rhmc_diag" | "hmc_pallas" within-model move
+    # (rhmc_diag: diagonal-Fisher Riemannian — metric.make_diag_metric_fn;
+    # hmc_pallas: the fused GPU leapfrog kernel)
     mutation: str = "hmc"
     n_leapfrog: int = 10
     fixed_point_iters: int = 4
@@ -126,7 +125,7 @@ def make_transdim_kernel(
     image: jax.Array,
     prior: PriorSpec,
     cfg: TransDimMCMCConfig,
-    interpret: bool | None = None,
+    interpret: bool = False,
     beta: float = 1.0,
 ):
     """Batched transition kernel: (TDState, eps) -> (TDState, TDInfo).
@@ -158,11 +157,8 @@ def make_transdim_kernel(
         metric2 = lambda th, m: make_diag_metric_fn(spec, prior)(th, m, beta)
         ham, dhdt, dhdp = make_rhmc_diag_functions(pfn, metric2)
     if cfg.mutation == "hmc_pallas" and beta != 1.0:
-        # the fused HMC trajectory kernel evaluates the beta=1 posterior;
-        # the Riemannian kernel takes beta directly (pallas_rhmc.py)
-        raise ValueError("tempered trans-d MCMC: use hmc/rhmc/rhmc_pallas")
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
+        # the fused trajectory kernel evaluates the beta=1 posterior
+        raise ValueError("tempered trans-d MCMC: use hmc/rhmc/rhmc_diag")
 
     def kernel(state: TDState, eps: jax.Array) -> tuple[TDState, TDInfo]:
         keys = jax.vmap(lambda k: jax.random.split(k, 3))(state.key)
@@ -226,29 +222,6 @@ def make_transdim_kernel(
                     solver_tol=cfg.solver_tol,
                 )
             )(sts, mask)
-        elif cfg.mutation in ("rhmc_pallas", "rhmc_diag_pallas"):
-            from .rhmc import make_pallas_rhmc_kernel
-
-            rcfg = RHMCConfig(
-                n_leapfrog=cfg.n_leapfrog,
-                fixed_point_iters=cfg.fixed_point_iters,
-                divergence_threshold=cfg.divergence_threshold,
-                solver_tol=cfg.solver_tol,
-            )
-            kern = make_pallas_rhmc_kernel(
-                spec, image, prior, mask, rcfg, beta=beta,
-                interpret=interpret,
-                diag_metric=cfg.mutation == "rhmc_diag_pallas",
-                # real chain count, so the lane-vs-MXU builder choice for
-                # the diag kernel sees the true gcd tile instead of
-                # assuming a full 128 lane block (ADVICE round-4: this call
-                # site was missed when api.py/smc.py were fixed)
-                n_chains=int(mask.shape[0]),
-            )
-            sts, info = kern(
-                ChainState(theta, u, jnp.zeros_like(theta), k_wm), eps,
-                jnp.ones(theta.shape[1:]),
-            )
         else:
             raise ValueError(f"unknown mutation {cfg.mutation!r}")
 

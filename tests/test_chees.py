@@ -302,8 +302,8 @@ def test_warmup_extension_reduces_drift():
 
 def test_t_probe_promotes_collapsed_trajectory():
     """Round-5 T-probe machinery (OFF by default — a measured negative
-    result on non-stationary states, see ChEESConfig.t_probe_factors and
-    runs/chees_probe_fix.json).  AT stationarity the paired criterion
+    result on non-stationary states, see ChEESConfig.t_probe_factors).
+    AT stationarity the paired criterion
     comparison is sound: from warm states _chees_probe_jit must promote a
     deliberately collapsed T toward the criterion optimum and must not
     inflate an already-near-optimal T by more than one factor step."""
@@ -338,9 +338,9 @@ def test_t_probe_promotes_collapsed_trajectory():
 
 
 def test_equilibration_gate_reconciles_disagreeing_chains():
-    """Round-5 equilibration gate (ChEESConfig.eq_rhat_tol): chains that
-    exit warmup with disagreeing means — the measured bad-seed failure
-    (runs/chees_longwindow_badseeds.json) — must trigger extra discarded
+    """Round-5 equilibration gate (ChEESConfig.eq_tol): chains that
+    exit warmup with disagreeing means — the measured bad-seed failure —
+    must trigger extra discarded
     blocks, and the gated run's pooled split-R-hat must beat the ungated
     one.  Chains stay independent (no cross-chain copying), so the gate
     can only help by actually equilibrating."""

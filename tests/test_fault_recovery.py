@@ -1,6 +1,6 @@
 """Fault injection / checkpoint-restart recovery (SURVEY.md §5.3).
 
-The survey's recovery model: MCMC is trivially restartable — periodic orbax
+The survey's recovery model: MCMC is trivially restartable — periodic
 block checkpoints + restart on a replacement process.  This test implements
 the §5.3 fault-injection hook: a worker process samples in blocks with
 checkpointing, gets SIGKILLed mid-run (a dead host, not a clean exception),
@@ -205,7 +205,7 @@ print("WORKER_DONE", mode)
 @pytest.mark.slow
 def test_smc_sigkill_mid_tempering_then_resume(tmp_path):
     """SIGKILL the SMC worker mid-tempering (after 3 temperature steps);
-    a replacement process resumes from the per-step orbax checkpoint and
+    a replacement process resumes from the per-step checkpoint and
     finishes with the SAME logZ and particles as an uninterrupted run
     (VERDICT round-1 item 5 'done' criterion)."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -180,26 +180,58 @@ def test_smc_sharded_rhmc_diag_matches_single_device():
     np.testing.assert_allclose(float(res1.log_z), float(res2.log_z), rtol=1e-3)
 
 
-def test_smc_sharded_pallas_mutation():
-    """The fused Pallas RHMC mutation on a SHARDED particle axis: the kernel
-    call is wrapped in shard_map (per-device local mutation, smc.py), with
-    the chain tile auto-shrunk to the local shard width.  Interpreter mode
-    on the fake 8-device CPU mesh (conftest)."""
+def _tiny_cfg4(n_particles=64):
+    """The cfg4 preset's SMC settings (diag-Riemannian mutation chunked over
+    particles, residual-birth trans-d sweeps) on a tiny scene."""
+    import dataclasses
+
+    from starcat.configs import CONFIGS
+
+    base = CONFIGS["cfg4_crowded"]
+    smc = base.smc._replace(
+        n_particles=n_particles, max_steps=3, plateau_window=0,
+        n_final_rounds=0, n_transdim_sweeps=2, mutation_chunk=16,
+        transdim=base.smc.transdim._replace(lam_count=3.0),
+    )
+    return dataclasses.replace(base, scene=SceneSpec(16, 16, 1.5, 5.0),
+                               n_stars=3, kmax=6, smc=smc)
+
+
+def test_cfg4_preset_mutation_runs_on_cpu():
+    """The shipped cfg4 preset mutates with the XLA diagonal-Fisher
+    trajectory (rhmc_diag), chunked below the particle count; a few
+    temperature steps at a tiny shape give a finite logZ and star counts
+    inside [0, kmax]."""
+    from starcat.api import sample
+
+    cfg = _tiny_cfg4()
+    assert cfg.smc.mutation == "rhmc_diag"
+    assert cfg.smc.mutation_chunk < cfg.smc.n_particles
+    out = sample(cfg, seed=0)
+    assert np.isfinite(out.stats["log_z"])
+    assert out.stats["n_temp_steps"] == 3
+    counts = np.asarray(out.masks).sum(-1)
+    assert 0 <= counts.min() and counts.max() <= cfg.kmax
+    assert np.isfinite(out.thetas).all()
+
+
+def test_smc_sharded_rhmc_diag_mutation():
+    """The cfg4 mutation on a SHARDED particle axis (fake 8-device CPU
+    mesh): GSPMD partitions the chunked diag-Riemannian mutation, results
+    live on every device and match the single-device run."""
     from starcat.dist import make_mesh
 
-    spec, prior, img, (x, y, f) = _single_star_setup()
-    cfg = SMCConfig(
-        n_particles=64, mutation="rhmc_pallas", n_mutation_steps=1,
-        n_leapfrog=2, fixed_point_iters=2, step_size0=0.05, max_steps=4,
-    )
+    cfg = _tiny_cfg4()
+    truth, img = cfg.make_data()
     assert len(jax.devices()) == 8, "conftest must fake 8 CPU devices"
-    mesh = make_mesh("chains")
-    res = run_smc(jax.random.key(3), spec, img, prior, 1, cfg, mesh=mesh)
-    assert len(res.theta.sharding.device_set) == 8
-    assert np.isfinite(float(res.log_z))
-    assert np.isfinite(np.asarray(res.theta)).all()
-    # the mutation actually moved particles (acceptance not stuck at 0)
-    assert float(res.mean_accept) > 0.05
+    res1 = run_smc(jax.random.key(3), cfg.scene, img, cfg.prior, cfg.kmax,
+                   cfg.smc)
+    res8 = run_smc(jax.random.key(3), cfg.scene, img, cfg.prior, cfg.kmax,
+                   cfg.smc, mesh=make_mesh("chains"))
+    assert len(res8.theta.sharding.device_set) == 8
+    np.testing.assert_allclose(float(res1.log_z), float(res8.log_z), rtol=1e-3)
+    np.testing.assert_allclose(np.asarray(res1.mask).sum(-1).mean(),
+                               np.asarray(res8.mask).sum(-1).mean(), atol=0.5)
 
 
 def test_plateau_stopped_final_rounds():
@@ -274,8 +306,7 @@ def test_smc_sharded_islands_matches_single_device():
     per-island resampling gathers run under an 8-device particle mesh and
     reproduce the single-device result.  Deliberately cheap and UNMARKED so
     the fused single-program GSPMD path stays in the fast suite (ADVICE
-    round-4: the other sharded-invariance cases are slow-marked while
-    run_smc's TPU stepwise routing leans on them)."""
+    round-4: the other sharded-invariance cases are slow-marked)."""
     from starcat.dist import make_mesh
 
     spec, prior, img, _ = _single_star_setup()

@@ -5,9 +5,8 @@
    transitions (solver_fail), the driver surfaces them separately from
    Delta-H divergences, and a divergence-penalized dual averaging drives
    the adapted step size down until failures are rare.
-2. Cost-aware kernel dispatch: RunConfig.kernel = auto|pallas|xla, with
-   "auto" refusing the fused Riemannian kernels below the measured
-   chain-count crossover (api.RHMC_PALLAS_MIN_CHAINS).
+2. Kernel dispatch: RunConfig.kernel = auto|pallas|xla resolves to the
+   fused GPU leapfrog kernel or the XLA path (api._select_kernel).
 """
 import jax
 import jax.numpy as jnp
@@ -15,7 +14,7 @@ import numpy as np
 import pytest
 
 import starcat
-from starcat.api import RHMC_PALLAS_MIN_CHAINS, _select_kernel
+from starcat.api import _select_kernel
 from starcat.integrators import riemannian_leapfrog
 from starcat.metric import make_metric_fn
 from starcat.potential import PriorSpec, make_potential, make_potential_and_grad, sample_prior
@@ -100,20 +99,79 @@ def test_run_rhmc_surfaces_solver_rejections():
 
 
 def test_select_kernel_cost_model(monkeypatch):
-    """auto: fused Riemannian path only at/above the measured chain-count
-    crossover; pallas: whenever feasible; xla: never."""
+    """auto: the kernel exactly on a GPU with a feasible scene; xla: never;
+    pallas: only where it can run, else an error (no silent substitute)."""
     with pytest.raises(ValueError):
         _select_kernel("nope", True)
-    # off-TPU backends never take the Pallas path
-    assert not _select_kernel("pallas", True)
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    assert _select_kernel("pallas", True)
-    assert not _select_kernel("pallas", False)
+    # this suite's CPU backend: auto and xla take XLA, pallas refuses
+    assert not _select_kernel("auto", True)
     assert not _select_kernel("xla", True)
-    assert _select_kernel("auto", True, auto_ok=True)
-    assert not _select_kernel("auto", True, auto_ok=False)
-    # the rhmc dispatch crossover: cfg1's 64 chains stay on XLA under auto
-    assert 64 < RHMC_PALLAS_MIN_CHAINS <= 1024
+    with pytest.raises(ValueError, match="needs a GPU"):
+        _select_kernel("pallas", True)
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    assert _select_kernel("auto", True)
+    assert not _select_kernel("auto", False)
+    assert not _select_kernel("xla", True)
+    assert _select_kernel("pallas", True)
+    with pytest.raises(ValueError):
+        _select_kernel("pallas", False)  # e.g. the crowded field
+
+
+@pytest.mark.parametrize("backend,pref,head,expect", [
+    ("gpu", "auto", "chees", "pallas_triton_leapfrog"),
+    ("gpu", "xla", "chees", "xla"),
+    ("cpu", "auto", "chees", "xla"),
+    ("gpu", "auto", "hmc", "pallas_triton_leapfrog"),
+    ("cpu", "auto", "hmc", "xla"),
+    ("gpu", "auto", "rhmc", "xla"),
+    ("cpu", "pallas", "chees", ValueError),
+    ("gpu", "pallas", "rhmc", ValueError),
+])
+def test_sample_kernel_dispatch(monkeypatch, backend, pref, head, expect):
+    """sample() hands each head to the kernel path exactly where the
+    decision says so.  The backend is faked and the run stubbed at the head
+    driver, so the decision is tested without a GPU."""
+    import dataclasses
+
+    import starcat.api as api
+    import starcat.chees as chees_mod
+    import starcat.hmc as hmc_mod
+    from starcat.api import sample
+    from starcat.configs import CONFIGS
+
+    seen = {}
+
+    class Stop(Exception):
+        pass
+
+    def stub(name):
+        def run(*a, **k):
+            seen["ran"] = name
+            seen["impl"] = k.get("leapfrog_impl")
+            raise Stop
+
+        return run
+
+    monkeypatch.setattr(jax, "default_backend", lambda: backend)
+    monkeypatch.setattr(api, "run_hmc", stub("xla"))
+    monkeypatch.setattr(hmc_mod, "run_hmc_pallas", stub("pallas"))
+    monkeypatch.setattr(chees_mod, "run_chees", stub("chees"))
+    monkeypatch.setattr(api, "run_rhmc", stub("xla"))
+    cfg = dataclasses.replace(CONFIGS["cfg6_chees"], head=head, kernel=pref,
+                              n_chains=4, n_samples=2, n_warmup=2)
+    if expect is ValueError:
+        with pytest.raises(ValueError):
+            sample(cfg)
+        return
+    with pytest.raises(Stop):
+        sample(cfg)
+    on_kernel = expect != "xla"
+    if head == "chees":
+        assert (seen["impl"] is not None) == on_kernel
+    elif head == "hmc":
+        assert seen["ran"] == ("pallas" if on_kernel else "xla")
+    else:
+        assert seen["ran"] == "xla"
 
 
 def test_transdim_head_reports_solver_rejections():

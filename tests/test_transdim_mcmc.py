@@ -1,5 +1,5 @@
 """Trans-dimensional MCMC head tests (SURVEY.md §3.2 reference call stack;
-VERDICT.md round-1 item 2): prior recovery of the COMPOSED kernel
+round-1 review item 2): prior recovery of the COMPOSED kernel
 (trans-d sweeps + within-model move), star-count recovery on a 2-star mock,
 fixed-K agreement with the plain HMC head, and blocked/resume determinism.
 """
@@ -219,8 +219,9 @@ def test_pallas_leapfrog_per_chain_masks():
     p = jax.random.normal(jax.random.key(4), theta.shape) * masks[..., None]
     inv_mass = jnp.ones((K, 3))
 
-    fused = make_pallas_leapfrog(SPEC, img, PRIOR, K, 4, interpret=True)
-    th2, p2, u2, g2 = fused(theta, p, 0.002, inv_mass, masks)
+    fused = make_pallas_leapfrog(SPEC, img, PRIOR, K, interpret=True)
+    g0 = jax.vmap(pg)(theta, masks)[1]
+    th2, p2, u2, g2 = fused(theta, p, 0.002, inv_mass, masks, 4, g0)
 
     def one(t, q, m):
         u0, g0 = pg(t, m)
@@ -319,37 +320,3 @@ def test_transdim_mcmc_matches_smc_star_count():
     pmf_m = np.bincount(n_m, minlength=KMAX + 1)[: KMAX + 1] / n_m.size
     assert pmf_s.argmax() == pmf_m.argmax(), (pmf_s, pmf_m)
     assert abs(n_s.mean() - n_m.mean()) < 0.35, (n_s.mean(), n_m.mean())
-
-
-def test_pallas_mutation_gets_real_chain_count(monkeypatch):
-    """ADVICE round-4 (medium): make_transdim_kernel must pass the REAL
-    chain count to make_pallas_rhmc_kernel so the diag kernel's lane-vs-MXU
-    builder choice sees the true gcd tile (n_chains=0 assumes a full 128
-    lane block, which picks a builder that fails Mosaic lowering at odd
-    chain counts)."""
-    import starcat.rhmc as rhmc_mod
-
-    captured = {}
-    real = rhmc_mod.make_pallas_rhmc_kernel
-
-    def spy(*args, **kw):
-        captured.update(kw)
-        return real(*args, **kw)
-
-    monkeypatch.setattr(rhmc_mod, "make_pallas_rhmc_kernel", spy)
-
-    img = make_mock_image(
-        jax.random.key(1), jnp.array([5.0, 11.0]), jnp.array([6.0, 10.0]),
-        jnp.array([120.0, 90.0]), SPEC)
-    cfg = TransDimMCMCConfig(
-        step_size=0.1, mutation="rhmc_diag_pallas", n_leapfrog=2,
-        fixed_point_iters=2, n_transdim_sweeps=1,
-        transdim=TransDimConfig(lam_count=2.0))
-    n_chains = 8  # gcd(8, 128) = 8 < 64: the lane builder is infeasible
-    kernel = make_transdim_kernel(SPEC, img, PRIOR, cfg, interpret=True)
-    states = init_td_states(jax.random.key(2), SPEC, img, PRIOR, KMAX,
-                            n_chains, cfg.transdim.lam_count)
-    new, info = kernel(states, jnp.asarray(0.05))
-    assert captured.get("n_chains") == n_chains
-    assert np.asarray(new.theta).shape[0] == n_chains
-    assert np.all(np.isfinite(np.asarray(info.accept_prob)))
